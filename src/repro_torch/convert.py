@@ -1,0 +1,66 @@
+"""State carried between the JAX package and the port.
+
+The JAX package's ``bandit_jax.state_tree`` flattens a ``BanditState`` to a
+dict of arrays (one run, no grid axis); the engines' ``EnvArrays`` has the
+same four fields as the port's.  These functions move such dicts — of numpy
+arrays or anything ``np.asarray`` takes — to the port's tensors and back,
+so both packages can start from the same mid-run state.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from repro_torch.core.bandit import STATE_FIELDS, BanditState
+from repro_torch.sim.engine import EnvArrays
+
+_INT_FIELDS = ("n_sel", "total", "hist_n", "n_fail")
+
+
+def state_from_tree(tree: dict, device="cpu") -> BanditState:
+    """A :class:`BanditState` from a dict of arrays.  Leaves without the
+    leading [G] axis (a JAX state of one run: [K], [K, W], scalars) gain a
+    G = 1 axis; a missing ``n_fail`` (older checkpoints) starts at zero."""
+    tree = {k: np.asarray(v) for k, v in tree.items()}
+    batched = tree["n_sel"].ndim == 2
+    if "n_fail" not in tree:
+        tree["n_fail"] = np.zeros_like(tree["n_sel"], np.int32)
+    leaves = {}
+    for name in STATE_FIELDS:
+        x = tree[name]
+        if not batched:
+            x = x[None]
+        dtype = np.int32 if name in _INT_FIELDS else np.float32
+        leaves[name] = torch.tensor(np.asarray(x, dtype), device=device)
+    return BanditState(**leaves)
+
+
+def state_tree(state: BanditState, batched: bool = True) -> dict:
+    """The inverse: a dict of numpy arrays, with the [G] axis, or without it
+    (``batched=False``; requires G = 1) in the JAX package's layout."""
+    out = {name: getattr(state, name).detach().cpu().numpy()
+           for name in STATE_FIELDS}
+    if not batched:
+        if out["n_sel"].shape[0] != 1:
+            raise ValueError("batched=False needs a state of one run (G=1)")
+        out = {k: v[0] for k, v in out.items()}
+    return out
+
+
+def env_from_tree(tree: dict, device="cpu") -> EnvArrays:
+    """The port's :class:`EnvArrays` from the JAX package's fields."""
+    def f(x, dtype=np.float32):
+        return torch.tensor(np.asarray(x, dtype), device=device)
+    return EnvArrays(mean_theta=f(tree["mean_theta"]),
+                     mean_gamma=f(tree["mean_gamma"]),
+                     n_samples=f(tree["n_samples"]),
+                     cell_id=f(tree["cell_id"], np.int64))
+
+
+def env_tree(env: EnvArrays) -> dict:
+    """The inverse of :func:`env_from_tree`, in the JAX package's dtypes."""
+    return {"mean_theta": env.mean_theta.cpu().numpy(),
+            "mean_gamma": env.mean_gamma.cpu().numpy(),
+            "n_samples": env.n_samples.cpu().numpy(),
+            "cell_id": env.cell_id.cpu().numpy().astype(np.int32)}

@@ -1,0 +1,133 @@
+"""Plain PyTorch versions of the bandit-round kernels — the port of
+``repro.kernels.ref`` (``truncnorm_times_ref``, ``bandit_round_ref``).
+
+They are the CPU path of ``kernels/ops.py`` and the reference that the CUDA
+kernel (kernels/csrc/bandit_round.cu) is held against on the card: the same
+candidate-compacted formulation, step by step.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from repro_torch.core import bandit
+from repro_torch.sim.truncnorm import truncnorm_transform
+
+
+def truncnorm_times_ref(u2, mu_theta, mu_gamma, n_samples, eta, model_bits,
+                        *, fluctuate: bool = True):
+    """Eqs. (8)-(11) at the candidate slice.
+
+    ``u2``: [G, 2, C] uniforms (row 0 -> throughput theta, row 1 ->
+    capability gamma); ``mu_theta``/``mu_gamma``/``n_samples``: [G, C]
+    candidate-gathered means; ``eta``: [G] tensor or float.  Returns
+    ([G, C] t_ud, [G, C] t_ul) with t_UD = D_k / gamma, t_UL = M / theta.
+    """
+    if fluctuate:
+        if isinstance(eta, torch.Tensor):
+            eta = eta.view(-1, 1, 1)
+        drawn = truncnorm_transform(u2, torch.stack([mu_theta, mu_gamma], 1),
+                                    eta)
+        theta, gamma = drawn[:, 0], drawn[:, 1]
+    else:
+        theta, gamma = mu_theta, mu_gamma
+    return (n_samples / gamma.clamp_min(1e-9),
+            model_bits / theta.clamp_min(1e-9))
+
+
+def sample_times_candidates(u2, cand_idx, n_samples, theta_mu, gamma_mu,
+                            eta, model_bits, *, fluctuate: bool = True):
+    """Eqs. (8)-(11) at the candidate slice: ([G, C] t_UD, [G, C] t_UL) for
+    the [G, C] candidates (>= K = padding) from the [G, 2, C] uniforms
+    ``u2``, the [G, K] means and the [K] dataset sizes."""
+    k = theta_mu.shape[1]
+    safe_c = torch.where(cand_idx < k, cand_idx, 0).long()
+    return truncnorm_times_ref(u2, theta_mu.gather(1, safe_c),
+                               gamma_mu.gather(1, safe_c), n_samples[safe_c],
+                               eta, model_bits, fluctuate=fluctuate)
+
+
+def bandit_round_ref(state, cand_idx, t_ud, t_ul, rand, hyper, *,
+                     policy: str, s_round: int, decay: float = 1.0,
+                     sliced: bool = False, fault: tuple | None = None,
+                     deadline: float | None = None, fault_u=None):
+    """One fused bandit round (score -> select -> schedule -> observe) on a
+    [G]-batched :class:`~repro_torch.core.bandit.BanditState`.
+
+    ``cand_idx``: [G, C] int32 sorted candidate indices, >= K entries
+    padding.  Every policy's statistics are gathered once for the C
+    candidates, Algorithm 1 / top-S runs on the [G, C] slice, and the
+    winning slots map back through ``cand_idx`` (sorted candidates make the
+    compacted lowest-index tie-break the lowest client index).  Returns
+    ``(new_state, sel [G, S], round_time [G])``, plus ``flags`` [G, S]
+    with the failure layer on (``deadline`` set; ``fault_u``: [G, 3, S]).
+
+    ``sliced``: ``t_ud``/``t_ul``/``rand`` are candidate-aligned [G, C]
+    arrays (the streamed-sampling path) instead of [G, K].
+    """
+    k = state.n_sel.shape[1]
+    cvalid = cand_idx < k
+    safe_c = torch.where(cvalid, cand_idx, 0).long()
+
+    def gather(x):
+        return x.gather(1, safe_c)
+
+    def col(name):
+        if name.startswith("hist_sum_"):
+            h = getattr(state, "hist_" + name[len("hist_sum_"):])
+            return bandit.row_sum(
+                h.gather(1, safe_c[..., None].expand(-1, -1, h.shape[2])))
+        return gather(getattr(state, name))
+
+    def at_c(x):
+        return None if x is None else (x if sliced else gather(x))
+
+    obs = {name: col(name) for name in bandit.POLICY_STATS[policy]}
+    kind, a, b = bandit.policy_scores(
+        policy, obs, state.total, state.disc_total, at_c(t_ud), at_c(t_ul),
+        at_c(rand), hyper)
+    if kind == "score":
+        slots = bandit.top_slots(a, cvalid, s_round)
+    else:
+        slots = bandit.greedy_slots(a, b, cvalid, s_round)
+    ok = slots >= 0
+    safe_slot = torch.where(ok, slots, 0).long()
+    sel = torch.where(ok, cand_idx.gather(1, safe_slot), -1).to(torch.int32)
+
+    valid = sel >= 0
+    if sliced:
+        sud, sul = t_ud.gather(1, safe_slot), t_ul.gather(1, safe_slot)
+    else:
+        safe = torch.where(valid, sel, 0).long()
+        sud, sul = t_ud.gather(1, safe), t_ul.gather(1, safe)
+    if deadline is None:
+        round_time, incs = bandit.schedule_gathered(valid, sud, sul)
+        state = bandit.observe(state, sel, sud, sul, incs, decay=decay)
+        return state, sel, round_time
+    round_time, incs, finish = bandit.schedule_completions(valid, sud, sul)
+    obs_ud, obs_ul, obs_inc, fail, flags, round_time = bandit.censor_slots(
+        valid, sud, sul, incs, finish, round_time, fault_u, fault, deadline)
+    state = bandit.observe(state, sel, obs_ud, obs_ul, obs_inc, decay=decay,
+                           fail=fail)
+    return state, sel, round_time, flags
+
+
+def bandit_round_sampled_ref(state, cand_idx, u2, rand, theta_mu, gamma_mu,
+                             n_samples, eta, model_bits, hyper, *,
+                             policy: str, s_round: int, decay: float = 1.0,
+                             fluctuate: bool = True,
+                             fault: tuple | None = None,
+                             deadline: float | None = None, fault_u=None):
+    """The streamed-sampling round: gather the candidates' [G, K] means,
+    draw their Eq. (8) times from ``u2`` ([G, 2, C]) and run the sliced
+    :func:`bandit_round_ref` — the plain version of the sampled kernel."""
+    t_ud_c, t_ul_c = sample_times_candidates(
+        u2, cand_idx, n_samples, theta_mu, gamma_mu, eta, model_bits,
+        fluctuate=fluctuate)
+    k = theta_mu.shape[1]
+    rand_c = (None if rand is None else
+              rand.gather(1, torch.where(cand_idx < k, cand_idx, 0).long()))
+    return bandit_round_ref(
+        state, cand_idx, t_ud_c, t_ul_c, rand_c, hyper, policy=policy,
+        s_round=s_round, decay=decay, sliced=True, fault=fault,
+        deadline=deadline, fault_u=fault_u)

@@ -1,0 +1,482 @@
+"""The protocol sweep on one device — the PyTorch port of
+``repro.sim.engine_jax`` (single device, flat selection).
+
+``sweep`` runs the paper's experiment: a grid of policies x eta x seeds
+through R protocol rounds, each round doing Resource Request -> Eq. (8)
+resource draws -> policy scoring -> Algorithm 1 / top-S selection ->
+realized upload schedule -> bandit ``observe``.  The JAX package ``vmap``s
+one grid point over the flattened (eta x seed) axis and ``lax.scan``s over
+rounds; here every tensor carries that axis as a leading [G] dimension
+(grid point g = eta index * n_seeds + seed index) and the rounds are a host
+loop.  The policy axis is a Python loop, as in the JAX package.
+
+Each round is split at a seam:
+
+  * :func:`draw_round_inputs` draws the round's random numbers from
+    ``torch.Generator``s — candidates, the Eq. (8) uniforms, the random
+    policy's uniforms, fault uniforms, congestion normals, churn draws —
+    into a :class:`RoundDraws`;
+  * :func:`run_rounds` consumes those draws and runs the rounds.
+
+The tests hand numpy-made draws to both :func:`run_rounds` and the JAX
+package's round functions, which holds the whole round loop against JAX
+exactly with no shared RNG.  ``torch.Generator`` streams differ from
+``jax.random``'s, so sampled sweeps of the two packages agree in
+distribution, not pointwise.
+
+Two sampling paths, as in the JAX package: the legacy path draws every
+client's times each round (presample of [G, K]) and runs the fused round on
+them; the streamed path (``fast_sampling``, the default at
+K >= FAST_SAMPLING_MIN_K) polls candidates by a top-k of uniforms and draws
+Eq. (8) times only for the [C] candidates, inside the fused round.  On a
+CUDA device every fused round is one launch of the hand-written kernel
+(kernels/bandit_round.py).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Iterable
+
+import numpy as np
+import torch
+
+from repro_torch.core import bandit
+from repro_torch.kernels.ref import sample_times_candidates
+from repro_torch.sim import network
+from repro_torch.sim.resources import PAPER_MODEL_BITS
+from repro_torch.sim.scenarios import CAP_HIGH, CAP_LOW, Scenario, get_scenario
+from repro_torch.sim.truncnorm import truncnorm_transform
+
+FAST_SAMPLING_MIN_K = 1024
+
+# the random streams of one sweep, each its own generator so that one
+# policy's extra draws (the random policy's uniforms) do not shift another
+# stream: every policy and eta of a sweep sees the same candidates and
+# resource uniforms (common random numbers, as the JAX sweep's per-seed
+# keys give)
+STREAMS = ("cand", "time", "pol", "fault", "cong", "churn")
+
+
+def resolve_device(device=None) -> torch.device:
+    """``None`` means the card.  Raises when CUDA is asked for (or left to
+    the default) and is not available; the CPU runs only when asked."""
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("CUDA is not available; pass device='cpu' to run "
+                           "the plain PyTorch path on the CPU")
+    return dev
+
+
+def resolve_fast_sampling(fast_sampling: bool | None, n_clients: int) -> bool:
+    """``fast_sampling`` None = the streamed path at K >= 1024."""
+    if fast_sampling is None:
+        return n_clients >= FAST_SAMPLING_MIN_K
+    return bool(fast_sampling)
+
+
+# ---------------------------------------------------------------------------
+# Environment and Eqs. (8)-(11)
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class EnvArrays:
+    """Static scenario state on the device, shared by every grid point."""
+
+    mean_theta: torch.Tensor    # [K] mean throughput, bit/s
+    mean_gamma: torch.Tensor    # [K] mean capability, samples/s
+    n_samples: torch.Tensor     # [K] local dataset sizes D_k
+    cell_id: torch.Tensor       # [K] int64 congestion-cell assignment
+
+    @staticmethod
+    def from_scenario(scenario: Scenario, env, device="cpu") -> "EnvArrays":
+        def f(x):
+            return torch.as_tensor(np.asarray(x, np.float32), device=device)
+        return EnvArrays(
+            mean_theta=f(env.mean_throughput_bps),
+            mean_gamma=f(env.mean_capability),
+            n_samples=f(env.n_samples),
+            cell_id=torch.as_tensor(scenario.cell_ids(env.n_clients),
+                                    dtype=torch.int64, device=device))
+
+
+def sample_times(n_samples, theta_mu, gamma_mu, eta, model_bits, u_theta,
+                 u_gamma, *, fluctuate: bool = True):
+    """Eqs. (8)-(11) for every client: ([G, K] t_UD, [G, K] t_UL) from the
+    [G, K] means and the round's [G, K] uniforms (``eta``: [G])."""
+    if fluctuate:
+        eta = eta.view(-1, 1)
+        theta = truncnorm_transform(u_theta, theta_mu, eta)
+        gamma = truncnorm_transform(u_gamma, gamma_mu, eta)
+    else:
+        theta, gamma = theta_mu, gamma_mu
+    return (n_samples / gamma.clamp_min(1e-9),
+            model_bits / theta.clamp_min(1e-9))
+
+
+def throughput_bps(dist_m: torch.Tensor) -> torch.Tensor:
+    """float32 LTE link budget of sim/network.py::throughput_bps."""
+    d = dist_m.clamp_min(network.MIN_DIST_M)
+    pl_db = (36.7 * torch.log10(d) + 22.7
+             + 26.0 * math.log10(network.CARRIER_GHZ))
+    noise_dbm = (network.THERMAL_NOISE_DBM_HZ
+                 + 10.0 * math.log10(network.BANDWIDTH_HZ)
+                 + network.NOISE_FIGURE_DB)
+    snr_db = (network.TX_POWER_DBM + network.ANTENNA_GAIN_DBI - pl_db
+              - noise_dbm + network.LINK_MARGIN_DB)
+    rho = torch.log2(1.0 + 10.0 ** (snr_db / 10.0) / network.SHANNON_DELTA)
+    return network.BANDWIDTH_HZ * rho.clamp_max(network.RHO_MAX)
+
+
+def scenario_diurnal_mult(scen: Scenario, rounds: torch.Tensor) -> torch.Tensor:
+    """Per-round diurnal throughput multiplier (1.0 without diurnal drift);
+    ``rounds``: 1-based round indices."""
+    rounds = rounds.float()
+    if scen.diurnal_amp > 0.0 and scen.diurnal_period > 0:
+        return (1.0 + scen.diurnal_amp * torch.sin(
+            2.0 * math.pi * rounds / scen.diurnal_period)).clamp_min(0.05)
+    return torch.ones_like(rounds)
+
+
+def scenario_thr_mult(scen: Scenario, cell_id: torch.Tensor,
+                      normals: torch.Tensor | None, rnd: int):
+    """Round ``rnd``'s (1-based) multiplier on mean throughput: diurnal
+    drift times correlated cell congestion, from the round's [G, cells]
+    standard normals.  Broadcastable against [G, K]; None when the
+    scenario has neither."""
+    mult = None
+    if scen.diurnal_amp > 0.0 and scen.diurnal_period > 0:
+        mult = scenario_diurnal_mult(
+            scen, torch.tensor([rnd], device=cell_id.device)).view(1, 1)
+    if normals is not None:
+        cell_f = torch.exp(scen.congestion_sigma * normals)[:, cell_id]
+        mult = cell_f if mult is None else mult * cell_f
+    return mult
+
+
+def churn_step(u: torch.Tensor, mean_theta: torch.Tensor,
+               mean_gamma: torch.Tensor, churn_prob: float):
+    """Maybe replace one client per grid point with a fresh device (new
+    mean resources; the server's statistics go stale).  ``u``: [G, 4]
+    uniforms (whether, which client, its distance, its capability)."""
+    k = mean_theta.shape[1]
+    do = u[:, 0] < churn_prob
+    j = (u[:, 1] * k).long().clamp_max(k - 1)
+    r = (network.CELL_RADIUS_M * torch.sqrt(u[:, 2])).clamp_min(
+        network.MIN_DIST_M)
+    hit = do[:, None] & (torch.arange(k, device=u.device)[None] == j[:, None])
+    new_gamma = CAP_LOW + u[:, 3] * (CAP_HIGH - CAP_LOW)
+    return (torch.where(hit, throughput_bps(r)[:, None], mean_theta),
+            torch.where(hit, new_gamma[:, None], mean_gamma))
+
+
+# ---------------------------------------------------------------------------
+# The seam: per-round draws and the round runner
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass
+class RoundDraws:
+    """One round's random inputs for the [G] grid."""
+
+    cand: torch.Tensor                  # [G, C] int32 sorted candidates
+    u_time: torch.Tensor | None         # [G, 2, K] legacy | [G, 2, C] fast
+    rand: torch.Tensor | None = None    # [G, K] random policy's uniforms
+    fault_u: torch.Tensor | None = None  # [G, 3, S] crash/churn/corrupt
+    cong: torch.Tensor | None = None    # [G, cells] standard normals
+    churn: torch.Tensor | None = None   # [G, 4] churn uniforms
+
+
+def make_generators(seeds, device) -> dict[str, torch.Generator]:
+    """One ``torch.Generator`` per stream of :data:`STREAMS`, seeded from
+    the sweep's seed list."""
+    children = np.random.SeedSequence([int(s) for s in seeds]).spawn(
+        len(STREAMS))
+    gens = {}
+    for name, child in zip(STREAMS, children):
+        gen = torch.Generator(device=device)
+        gen.manual_seed(int(child.generate_state(1)[0]))
+        gens[name] = gen
+    return gens
+
+
+def draw_round_inputs(gens: dict[str, torch.Generator], *, n_seeds: int,
+                      n_etas: int, k: int, n_req: int, s_round: int,
+                      fast: bool, fluctuate: bool, policy: str,
+                      scen: Scenario, fault) -> RoundDraws:
+    """Draw one round's inputs for every seed and repeat them over the eta
+    axis.  Candidates: a sorted permutation prefix (legacy path) or the
+    sorted top-``n_req`` of K uniforms (streamed path) — both a uniform
+    random ``n_req``-subset."""
+    device = gens["cand"].device
+
+    def rnd(name, *shape):
+        return torch.rand((n_seeds, *shape), generator=gens[name],
+                          device=device)
+
+    u = rnd("cand", k)
+    cand = (u.topk(n_req, dim=1).indices if fast
+            else u.argsort(dim=1)[:, :n_req])
+    d = RoundDraws(
+        cand=cand.sort(dim=1).values.to(torch.int32),
+        u_time=rnd("time", 2, n_req if fast else k) if fluctuate else None,
+        rand=rnd("pol", k) if policy == "random" else None,
+        fault_u=rnd("fault", 3, s_round) if fault is not None else None,
+        cong=(torch.randn((n_seeds, scen.congestion_cells),
+                          generator=gens["cong"], device=device)
+              if scen.congestion_cells > 0 and scen.congestion_sigma > 0.0
+              else None),
+        churn=rnd("churn", 4) if scen.churn_prob > 0.0 else None)
+    if n_etas == 1:
+        return d
+    return RoundDraws(**{
+        f.name: (None if (x := getattr(d, f.name)) is None
+                 else x.repeat(n_etas, *([1] * (x.dim() - 1))))
+        for f in dataclasses.fields(d)})
+
+
+def _uniforms(d: RoundDraws):
+    """The legacy path's (theta, gamma) uniforms of a round, [G, K] each."""
+    return (None, None) if d.u_time is None else (d.u_time[:, 0],
+                                                  d.u_time[:, 1])
+
+
+def run_rounds(env: EnvArrays, eta: torch.Tensor,
+               draws: Iterable[RoundDraws], *, policy: str, scen: Scenario,
+               s_round: int, hyper: float, model_bits: float,
+               fluctuate: bool = True, fast: bool = False,
+               fused: bool = True, deadline: float | None = None):
+    """Run one round per element of ``draws`` for the [G] grid of ``eta``.
+
+    Returns ``(round_times [G, R], flags [G, R, S] or None, state)``;
+    ``flags`` exist when the failure layer is on (``deadline`` set, the
+    scenario's FaultModel giving the fault probabilities).  ``fused`` runs
+    each round through the fused round (the CUDA kernel on the card);
+    ``fused=False`` through the unfused mask pipeline.  ``fast`` picks the
+    streamed path, where ``u_time`` holds candidate-slice uniforms.
+    """
+    g, k = eta.shape[0], env.mean_theta.shape[0]
+    device = env.mean_theta.device
+    failure = deadline is not None
+    fault = bandit.resolve_fault(scen.fault, deadline)
+    decay = bandit.policy_decay(policy)
+    state = bandit.BanditState.create(g, k, device=device)
+    m_theta = env.mean_theta.expand(g, k).contiguous()
+    m_gamma = env.mean_gamma.expand(g, k).contiguous()
+    if fused and fast:
+        sampled_fn = bandit.make_sampled_round_fn(
+            policy, s_round, fluctuate=fluctuate, fault=fault,
+            deadline=deadline)
+    elif fused:
+        round_fn = bandit.make_round_fn(policy, s_round, fault=fault,
+                                        deadline=deadline)
+    rts, flags = [], []
+    for rnd, d in enumerate(draws, start=1):
+        mult = scenario_thr_mult(scen, env.cell_id, d.cong, rnd)
+        mu_t = m_theta if mult is None else m_theta * mult
+        if fast and fused:
+            out = sampled_fn(state, d.cand, d.u_time, d.rand, mu_t, m_gamma,
+                             env.n_samples, eta, model_bits, hyper,
+                             fault_u=d.fault_u)
+        elif fused:
+            t_ud, t_ul = sample_times(env.n_samples, mu_t, m_gamma, eta,
+                                      model_bits, *_uniforms(d),
+                                      fluctuate=fluctuate)
+            out = round_fn(state, d.cand, t_ud, t_ul, d.rand, hyper,
+                           fault_u=d.fault_u)
+        else:
+            if fast:
+                t_ud, t_ul, mask = bandit.scatter_cand_times(
+                    d.cand, *sample_times_candidates(
+                        d.u_time, d.cand, env.n_samples, mu_t, m_gamma, eta,
+                        model_bits, fluctuate=fluctuate), k)
+            else:
+                t_ud, t_ul = sample_times(env.n_samples, mu_t, m_gamma, eta,
+                                          model_bits, *_uniforms(d),
+                                          fluctuate=fluctuate)
+                mask = bandit.cand_mask(d.cand, k)
+            out = bandit.round_via_mask(
+                state, mask, t_ud, t_ul, d.rand, hyper, policy=policy,
+                s_round=s_round, decay=decay, fault=fault, deadline=deadline,
+                fault_u=d.fault_u)
+        state = out[0]
+        rts.append(out[2])
+        if failure:
+            flags.append(out[3])
+        if scen.churn_prob > 0.0:
+            m_theta, m_gamma = churn_step(d.churn, m_theta, m_gamma,
+                                          scen.churn_prob)
+    return (torch.stack(rts, 1), torch.stack(flags, 1) if failure else None,
+            state)
+
+
+# ---------------------------------------------------------------------------
+# Replay mode: externally supplied candidates/times
+# ---------------------------------------------------------------------------
+
+def run_replay(policy: str, hyper: float, cand_masks, t_ud_rounds,
+               t_ul_rounds, rand_rounds=None, *, s_round: int, device=None):
+    """Run R rounds of one policy from precomputed inputs through the
+    unfused mask pipeline (the port of ``engine_jax.run_replay``).
+
+    ``cand_masks``: [R, K] bool; ``t_*_rounds``: [R, K]; ``rand_rounds``:
+    [R, K] uniforms for the random policy.  Returns a dict with
+    ``round_times`` [R], ``elapsed`` [R] (cumulative), ``selected`` [R, S]
+    and the final (G = 1) state.
+    """
+    device = resolve_device(device)
+    bandit.check_policy(policy)
+
+    def t(x, dtype=torch.float32):
+        return torch.as_tensor(np.asarray(x), dtype=dtype, device=device)
+    masks = t(cand_masks, torch.bool)
+    t_ud, t_ul = t(t_ud_rounds), t(t_ul_rounds)
+    rand = None if rand_rounds is None else t(rand_rounds)
+    decay = bandit.policy_decay(policy)
+    state = bandit.BanditState.create(1, masks.shape[1], device=device)
+    rts, sels = [], []
+    for r in range(masks.shape[0]):
+        state, sel, rt = bandit.round_via_mask(
+            state, masks[r][None], t_ud[r][None], t_ul[r][None],
+            None if rand is None else rand[r][None], hyper, policy=policy,
+            s_round=s_round, decay=decay)
+        rts.append(rt[0])
+        sels.append(sel[0])
+    rts = torch.stack(rts)
+    return {"round_times": rts, "elapsed": torch.cumsum(rts, 0),
+            "selected": torch.stack(sels), "state": state}
+
+
+# ---------------------------------------------------------------------------
+# The sweep
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class SweepResult:
+    """Round times for every (policy, eta, seed) grid point, on host."""
+
+    policies: tuple[str, ...]
+    hypers: tuple[float, ...]
+    etas: tuple[float, ...]
+    seeds: tuple[int, ...]
+    round_times: np.ndarray     # [P, E, S, R]
+    # per-slot outcome flags (core.bandit.FLAG_*) when the sweep ran with a
+    # round deadline; None on fault-free sweeps
+    flags: np.ndarray | None = None    # [P, E, S, R, s_round] int32
+
+    @property
+    def elapsed(self) -> np.ndarray:
+        """Final elapsed time per grid point, [P, E, S]."""
+        return self.round_times.sum(axis=-1)
+
+    def mean_elapsed(self) -> np.ndarray:
+        """Seed-averaged elapsed time, [P, E] (paper Figs. 1-2 input)."""
+        return self.elapsed.mean(axis=-1)
+
+    def fault_counts(self) -> dict[str, np.ndarray]:
+        """Per-grid-point outcome totals over all rounds/slots, [P, E, S]
+        per category; the categories partition the dispatched slots.
+        Requires a sweep run with a deadline."""
+        if self.flags is None:
+            raise ValueError("fault_counts() requires a sweep run with a "
+                             "deadline (the failure-aware layer)")
+        f = self.flags
+        cat = {"ok": bandit.FLAG_OK, "crashed": bandit.FLAG_CRASH,
+               "churned": bandit.FLAG_CHURN,
+               "deadline_missed": bandit.FLAG_DEADLINE,
+               "corrupt": bandit.FLAG_CORRUPT}
+        out = {k: (f == v).sum(axis=(-2, -1)) for k, v in cat.items()}
+        out["dispatched"] = (f >= 0).sum(axis=(-2, -1))
+        return out
+
+
+def sweep(scenario: Scenario | str = "paper-baseline",
+          policies=tuple(bandit.POLICY_NAMES),
+          etas=(1.0, 1.5, 1.9),
+          seeds=8,
+          n_rounds: int = 500,
+          n_clients: int = 100,
+          s_round: int = 5,
+          frac_request: float = 0.1,
+          model_bits: float = PAPER_MODEL_BITS,
+          env_seed: int = 0,
+          fluctuate: bool = True,
+          *,
+          deadline: float | None = None,
+          devices=None,
+          shard: str = "grid",
+          chunk_rounds: int | None = None,
+          fused: bool = True,
+          fast_sampling: bool | None = None,
+          hierarchy: str = "flat",
+          s_cells: int | None = None,
+          device=None) -> SweepResult:
+    """Run the (policy x eta x seed) grid; the arguments are those of
+    ``engine_jax.sweep``, plus ``device`` (None = the card; ``"cpu"`` runs
+    the plain PyTorch path).
+
+    ``policies`` entries are names or (name, hyper) pairs; ``seeds`` is an
+    int (=> range) or a sequence.  ``deadline`` (seconds) switches on the
+    failure-aware layer and the result's ``flags``.  Every grid point of one
+    seed sees the same random draws, whatever its policy or eta.  The
+    multi-device and large-K knobs (``devices``, ``shard="clients"``,
+    ``chunk_rounds``, ``hierarchy="cells"``) are not ported yet and raise.
+    """
+    if devices not in (None, 0, 1):
+        raise NotImplementedError("devices: multi-device sweeps are not "
+                                  "ported yet (ROADMAP Queue 1 item 8)")
+    if shard != "grid":
+        raise NotImplementedError("shard='clients': client-sharded rounds "
+                                  "are not ported yet (ROADMAP Queue 1 "
+                                  "item 8)")
+    if chunk_rounds is not None:
+        raise NotImplementedError("chunk_rounds: the port draws every round "
+                                  "inside its loop; chunked presampling is "
+                                  "not ported (ROADMAP Queue 1 item 4)")
+    if hierarchy != "flat" or s_cells is not None:
+        raise NotImplementedError("hierarchy='cells' is not ported yet "
+                                  "(ROADMAP Queue 1 item 5)")
+    device = resolve_device(device)
+    scenario = get_scenario(scenario) if isinstance(scenario, str) else scenario
+    if s_round > n_clients:
+        raise ValueError(f"s_round={s_round} exceeds n_clients={n_clients}: "
+                         f"cannot select more clients than exist")
+    deadline = None if deadline is None else float(deadline)
+    fault = bandit.resolve_fault(scenario.fault, deadline)
+    pol_names, hypers = [], []
+    for p in policies:
+        name, hyper = p if isinstance(p, tuple) else (p, None)
+        bandit.check_policy(name)
+        pol_names.append(name)
+        hypers.append(float(bandit.DEFAULT_HYPERS[name]
+                            if hyper is None else hyper))
+    seeds = tuple(range(seeds)) if isinstance(seeds, int) else tuple(seeds)
+    etas = tuple(float(e) for e in etas)
+    n_req = math.ceil(n_clients * frac_request)
+    fast = resolve_fast_sampling(fast_sampling, n_clients)
+
+    env = scenario.build_env(n_clients, np.random.default_rng(env_seed))
+    env_arrays = EnvArrays.from_scenario(scenario, env, device)
+    g_eta = torch.tensor(etas, dtype=torch.float32,
+                         device=device).repeat_interleave(len(seeds))
+
+    rts_all, flags_all = [], []
+    for name, hyper in zip(pol_names, hypers):
+        gens = make_generators(seeds, device)
+        draws = (draw_round_inputs(
+            gens, n_seeds=len(seeds), n_etas=len(etas), k=n_clients,
+            n_req=n_req, s_round=s_round, fast=fast, fluctuate=fluctuate,
+            policy=name, scen=scenario, fault=fault)
+            for _ in range(n_rounds))
+        rts, flags, _ = run_rounds(
+            env_arrays, g_eta, draws, policy=name, scen=scenario,
+            s_round=s_round, hyper=hyper, model_bits=float(model_bits),
+            fluctuate=fluctuate, fast=fast, fused=fused, deadline=deadline)
+        rts_all.append(rts)
+        flags_all.append(flags)
+    shape = (len(pol_names), len(etas), len(seeds), n_rounds)
+    rts = torch.stack(rts_all).cpu().numpy().reshape(shape)
+    flags = (None if deadline is None else
+             torch.stack(flags_all).cpu().numpy().reshape(shape + (s_round,)))
+    return SweepResult(policies=tuple(pol_names), hypers=tuple(hypers),
+                       etas=etas, seeds=seeds, round_times=rts, flags=flags)
