@@ -9,8 +9,12 @@ else.  Phases (every mismatch raises, so any failure exits non-zero):
   1. the card's name and power limit; build the CUDA kernels.
   2. each kernel against its plain PyTorch version on the card: both
      variants x 8 policies x deadline off/on, at K=100 (S=5) and K=10^4
-     (S=5, S=50), G=4 grid points, states warmed by 20 plain rounds.
-     Selections and flags exact; state and round times within rtol 1e-6.
+     (S=5, S=50) with G=4 grid points, and at the shapes of the sweeps
+     below: the legacy kernel at G=24, K=100; the sampled kernel at G=8,
+     K=10^4 and at ``metro-congestion``'s G=1, K=10^5, C=10^4 with the
+     per-cell congestion multiplier on the mean throughput.  States are
+     warmed by 20 plain rounds.  Selections and flags exact; state and
+     round times within rtol 1e-6.
   3. ``sweep("paper-baseline")`` at K=100: 8 policies x eta (1.0, 1.5, 1.9)
      x 8 seeds x 500 rounds through the legacy kernel, plus a small run
      fed the same draws on the card and on the CPU (plain path), which must
@@ -52,6 +56,18 @@ KERNELS = {
         replaces="src/repro/kernels/bandit_round.py:373"),
 }
 
+# phase 2's cases, (scenario, G, K, S) by kernel; the last ones are the
+# shapes at which phases 3-5 drive each kernel
+PHASE2_CASES = {
+    "bandit_round": [
+        ("paper-baseline", 4, 100, 5), ("paper-baseline", 4, 10_000, 5),
+        ("paper-baseline", 4, 10_000, 50), ("paper-baseline", 24, 100, 5)],
+    "bandit_round_sampled": [
+        ("paper-baseline", 4, 100, 5), ("paper-baseline", 4, 10_000, 5),
+        ("paper-baseline", 4, 10_000, 50), ("paper-baseline", 8, 10_000, 5),
+        ("metro-congestion", 1, 100_000, 5)],
+}
+
 
 def log(msg: str) -> None:
     print(msg, flush=True)
@@ -61,9 +77,12 @@ def log(msg: str) -> None:
 # helpers
 # ---------------------------------------------------------------------------
 
-def round_inputs(env, g, k, c, s, policy, sampled, failure, gen):
+def round_inputs(env, scen, g, k, c, s, policy, sampled, failure, gen):
     """One round's inputs on the card for a [g] grid (random draws from
-    ``gen``)."""
+    ``gen``); the mean throughput carries ``scen``'s per-cell congestion
+    multiplier, as the sweep's rounds do.  With ``failure`` the fault
+    probabilities are flaky-clients'."""
+    from repro_torch.sim.engine import scenario_thr_mult
     from repro_torch.sim.scenarios import get_scenario
     dev = env.mean_theta.device
     cand = torch.rand((g, k), generator=gen, device=dev).topk(c).indices
@@ -72,7 +91,14 @@ def round_inputs(env, g, k, c, s, policy, sampled, failure, gen):
                     if policy == "random" else None),
               fault_u=(torch.rand((g, 3, s), generator=gen, device=dev)
                        if failure else None))
-    theta = env.mean_theta.expand(g, k).contiguous()
+    normals = (torch.randn((g, scen.congestion_cells), generator=gen,
+                           device=dev)
+               if scen.congestion_cells > 0 and scen.congestion_sigma > 0.0
+               else None)
+    mult = scenario_thr_mult(scen, env.cell_id, normals, 1)
+    theta = env.mean_theta.expand(g, k) if mult is None else (
+        env.mean_theta * mult).expand(g, k)
+    theta = theta.contiguous()
     gamma = env.mean_gamma.expand(g, k).contiguous()
     eta = torch.full((g,), 1.5, device=dev)
     if sampled:
@@ -169,19 +195,27 @@ def bound(policy, g, k, c, s, sampled, failure):
     must move (each input read once, each output written once) over the
     memory rate, against its float operations over the float32 rate."""
     from repro_torch.core.bandit import HIST_WINDOW as W
-    from repro_torch.core.bandit import policy_decay, policy_kind
-    stat_bytes = {"fedcs": 8, "extended_fedcs": 8 * W + 4, "naive_ucb": 8,
-                  "elementwise_ucb": 12, "random": 4, "oracle": 0,
-                  "discounted_ucb": 12, "sliding_ucb": 8 * W + 8}[policy]
-    per_cand = 4 + stat_bytes + (8 + 12 if sampled else 8)
+    from repro_torch.core.bandit import POLICY_STATS, policy_decay, policy_kind
     decays = policy_decay(policy) != 1.0
-    # per selected row: read n_sel, 3 sums, hist_n (+3 disc, +n_fail);
-    # write those plus last_*, one ring slot of hist_*
-    row = 4 * 5 + 4 * (5 + 2 + 2)
-    row += 3 * 8 if decays else 0
-    row += 8 if failure else 0
-    per_g = (c * per_cand + s * row + s * 8 + 4 + 8
-             + (12 * s if failure else 0) + (2 * 4 * k * 3 if decays else 0))
+    gathered = set(POLICY_STATS[policy])
+    # per candidate: its index; its times (legacy) or its two uniforms and
+    # three means (sampled); the random policy's uniform; the statistics the
+    # policy scores (a ring-buffer sum reads W entries; discounted UCB's
+    # disc_* are read by the decay pass below)
+    per_cand = 4 + (20 if sampled else 8) + (4 if policy == "random" else 0)
+    per_cand += sum(4 * W if col.startswith("hist_sum_") else 4
+                    for col in gathered if not col.startswith("disc_"))
+    # per selected row: read the counters and sums the gather did not; write
+    # them, last_ud/ul and one ring slot of hist_ud/ul (disc_* rows are
+    # written by the decay pass); n_fail read and written with failures on
+    row = 4 * len({"n_sel", "sum_ud", "sum_ul", "sum_tinc", "hist_n"}
+                  - gathered) + 4 * 9 + (8 if failure else 0)
+    per_g = (c * per_cand + s * row
+             + 8                                  # total, read and written
+             + (8 + 2 * 4 * 3 * k if decays else 0)  # disc_total, decay pass
+             + (4 if sampled else 0)              # eta
+             + 4 * s + 4                          # sel, round_time
+             + (4 * s + 12 * s if failure else 0))   # flags, fault_u
     nbytes = g * per_g
     # float ops: per candidate ~40 for the Eq. (8) draw (sampled), ~10 for
     # the score, and per selection step ~6 per candidate (greedy) or 1
@@ -203,14 +237,11 @@ def phase_device_and_build() -> None:
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True, check=True)
     log(smi.stdout.strip().splitlines()[0])
+    cached = _build.library_path("bandit_round").exists()
     t0 = time.perf_counter()
-    logs = _build.build_all()
-    log(f"[1] built {sorted(logs) or 'nothing (cached)'} in "
-        f"{time.perf_counter() - t0:.1f} s")
-    for name, text in logs.items():
-        for line in text.splitlines():
-            if "registers" in line or "Compiling entry" in line:
-                log(f"[1]   {name}: {line.strip()}")
+    _build.load("bandit_round")
+    log(f"[1] bandit_round.cu {'loaded (cached)' if cached else 'built'} "
+        f"in {time.perf_counter() - t0:.1f} s")
 
 
 def phase_kernels(results: dict) -> None:
@@ -221,8 +252,6 @@ def phase_kernels(results: dict) -> None:
     from repro_torch.sim.scenarios import get_scenario
 
     dev = torch.device("cuda")
-    g = 4
-    shapes = [(100, 5), (10_000, 5), (10_000, 50)]
     for sampled in (False, True):
         name = "bandit_round_sampled" if sampled else "bandit_round"
         kern = (cuda_round.bandit_round_sampled_cuda if sampled
@@ -230,30 +259,31 @@ def phase_kernels(results: dict) -> None:
         plain = (ref.bandit_round_sampled_ref if sampled
                  else ref.bandit_round_ref)
         worst = 0.0
-        for k, s in shapes:
+        for scen_name, g, k, s in PHASE2_CASES[name]:
             c = math.ceil(0.1 * k)
-            scen = get_scenario("paper-baseline")
+            scen = get_scenario(scen_name)
             env = EnvArrays.from_scenario(
                 scen, scen.build_env(k, np.random.default_rng(0)), dev)
             for policy in bandit.POLICY_NAMES:
                 for failure in (False, True):
                     gen = torch.Generator(device=dev)
-                    gen.manual_seed(k + s + 17 * failure)
+                    gen.manual_seed(k + s + g + 17 * failure)
                     state = bandit.BanditState.create(g, k, device=dev)
                     for _ in range(20):           # warm with plain rounds
-                        kw, fault = round_inputs(env, g, k, c, s, policy,
-                                                 sampled, failure, gen)
+                        kw, fault = round_inputs(env, scen, g, k, c, s,
+                                                 policy, sampled, failure,
+                                                 gen)
                         state = call_round(plain, state, kw, policy, s,
                                            fault, sampled)[0]
-                    kw, fault = round_inputs(env, g, k, c, s, policy,
+                    kw, fault = round_inputs(env, scen, g, k, c, s, policy,
                                              sampled, failure, gen)
                     out_p = call_round(plain, state.clone(), kw, policy, s,
                                        fault, sampled)
                     out_k = call_round(kern, state.clone(), kw, policy, s,
                                        fault, sampled)
                     torch.cuda.synchronize()
-                    where = (f"{name} K={k} S={s} {policy} "
-                             f"deadline={'on' if failure else 'off'}")
+                    where = (f"{name} {scen_name} G={g} K={k} C={c} S={s} "
+                             f"{policy} deadline={'on' if failure else 'off'}")
                     worst = max(worst, compare(out_k, out_p, where))
                     ms = time_ms(call_round(
                         launcher(sampled), state.clone(), kw, policy, s,
@@ -286,7 +316,8 @@ def kernel_times(results: dict, name: str, g: int, k: int, s: int) -> None:
     for policy in bandit.POLICY_NAMES:
         gen = torch.Generator(device=dev)
         gen.manual_seed(1)
-        kw, fault = round_inputs(env, g, k, c, s, policy, sampled, False, gen)
+        kw, fault = round_inputs(env, scen, g, k, c, s, policy, sampled,
+                                 False, gen)
         state = bandit.BanditState.create(g, k, device=dev)
         launch = call_round(launcher(sampled), state, kw, policy, s, fault,
                             sampled)

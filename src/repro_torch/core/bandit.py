@@ -15,10 +15,12 @@ Counterparts (JAX package -> here): ``BanditState``, ``ucb_bonus_arrays``,
 ``observe``, ``greedy_slots``, ``top_slots``, ``schedule_selected`` /
 ``schedule_gathered`` / ``schedule_completions``, ``FLAG_*``,
 ``resolve_fault``, ``censor_slots``, ``POLICY_STATS``, ``policy_kind``,
-``policy_scores``, ``policy_decay``, ``DEFAULT_HYPERS``, ``FUSED_MIN_K``,
+``policy_scores``, ``policy_decay``, ``DEFAULT_HYPERS``,
 ``scatter_cand_times``, ``round_via_mask``, ``make_round_fn``,
 ``make_sampled_round_fn``.  Not ported yet: the client-sharded segmented
 round, the hierarchical cell bandit and the index-based ``select_*`` API.
+Not ported: ``FUSED_MIN_K``, the JAX package's CPU-timed small-K routing
+to the unfused pipeline; a fused round here always takes the fused path.
 """
 
 from __future__ import annotations
@@ -460,28 +462,6 @@ def policy_scores(policy: str, obs: dict, total, disc_total, t_ud, t_ul,
     raise ValueError(f"unknown policy {policy!r}; have {POLICY_NAMES}")
 
 
-# Below this many arms the fused round's candidate compaction costs more
-# than it saves for these policies on a CPU (the JAX package's CPU
-# measurement); on a CPU tensor the round functions then take the unfused
-# mask pipeline, which gives the same results.  It does not apply to CUDA
-# tensors: there every fused round runs the kernel.
-FUSED_MIN_K: dict[str, int] = {
-    "random": 1024,
-    "naive_ucb": 1024,
-    "discounted_ucb": 512,
-}
-
-
-def fused_min_k(policy: str) -> int:
-    """Smallest K at which a CPU round keeps the compacted path for
-    ``policy`` (0 = always)."""
-    return FUSED_MIN_K.get(policy, 0)
-
-
-def _mask_route(policy: str, x: torch.Tensor, k: int) -> bool:
-    return not x.is_cuda and k < fused_min_k(policy)
-
-
 def cand_mask(cand_idx: torch.Tensor, k: int) -> torch.Tensor:
     """[G, K] bool candidate mask from [G, C] indices (>= K = padding)."""
     g = cand_idx.shape[0]
@@ -541,9 +521,9 @@ def make_round_fn(policy: str, s_round: int, *, fault=None,
     ``fault_u``: [G, 3, S] fault uniforms when fault injection is on.  On a
     CUDA tensor the round is one launch of the hand-written kernel
     (kernels/bandit_round.py), which updates ``state`` in place; on a CPU
-    tensor it runs the plain version, or below :data:`FUSED_MIN_K` the
-    unfused mask pipeline.  Either way the caller must use the returned
-    state and treat the one passed in as consumed.
+    tensor it runs the plain version (kernels/ref.py).  Either way the
+    caller must use the returned state and treat the one passed in as
+    consumed.
     """
     from repro_torch.kernels import ops
     check_policy(policy)
@@ -551,12 +531,6 @@ def make_round_fn(policy: str, s_round: int, *, fault=None,
     fault = resolve_fault(fault, deadline)
 
     def round_fn(state, cand_idx, t_ud, t_ul, rand, hyper, fault_u=None):
-        k = t_ud.shape[1]
-        if _mask_route(policy, t_ud, k):
-            return round_via_mask(state, cand_mask(cand_idx, k), t_ud, t_ul,
-                                  rand, hyper, policy=policy,
-                                  s_round=s_round, decay=decay, fault=fault,
-                                  deadline=deadline, fault_u=fault_u)
         return ops.bandit_round(state, cand_idx, t_ud, t_ul, rand, hyper,
                                 policy=policy, s_round=s_round, decay=decay,
                                 fault=fault, deadline=deadline,
@@ -582,24 +556,12 @@ def make_sampled_round_fn(policy: str, s_round: int, *,
     the in-place contract as in :func:`make_round_fn`.
     """
     from repro_torch.kernels import ops
-    from repro_torch.kernels.ref import sample_times_candidates
     check_policy(policy)
     decay = policy_decay(policy)
     fault = resolve_fault(fault, deadline)
 
     def round_fn(state, cand_idx, u2, rand, theta_mu, gamma_mu, n_samples,
                  eta, model_bits, hyper, fault_u=None):
-        k = theta_mu.shape[1]
-        if _mask_route(policy, theta_mu, k):
-            t_ud_c, t_ul_c = sample_times_candidates(
-                u2, cand_idx, n_samples, theta_mu, gamma_mu, eta,
-                model_bits, fluctuate=fluctuate)
-            t_ud, t_ul, mask = scatter_cand_times(cand_idx, t_ud_c, t_ul_c,
-                                                  k)
-            return round_via_mask(state, mask, t_ud, t_ul, rand, hyper,
-                                  policy=policy, s_round=s_round,
-                                  decay=decay, fault=fault,
-                                  deadline=deadline, fault_u=fault_u)
         return ops.bandit_round_sampled(
             state, cand_idx, u2, rand, theta_mu, gamma_mu, n_samples, eta,
             model_bits, hyper, policy=policy, s_round=s_round, decay=decay,

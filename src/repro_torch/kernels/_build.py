@@ -21,7 +21,7 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-O3", "-shared", "-Xcompiler", "-fPIC")
 
 
 def _nvcc() -> str:
@@ -40,39 +40,19 @@ def library_path(name: str) -> Path:
     return BUILD_DIR / f"lib{name}-{digest[:16]}.so"
 
 
-def _start(name: str) -> tuple[Path, Path, subprocess.Popen] | None:
-    out = library_path(name)
-    if out.exists():
-        return None
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
-    return out, tmp, subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                                      stderr=subprocess.STDOUT, text=True)
-
-
-def _finish(job) -> str:
-    out, tmp, proc = job
-    log, _ = proc.communicate()
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed for {out.name} "
-                           f"(exit {proc.returncode}):\n{log}")
-    os.replace(tmp, out)
-    return log
-
-
-def build_all() -> dict[str, str]:
-    """Compile every source that has no library yet, one ``nvcc`` process
-    per source, all started together.  Returns the compiler output
-    (``-Xptxas -v`` register and shared-memory counts) by source name."""
-    jobs = {p.stem: _start(p.stem) for p in sorted(CSRC.glob("*.cu"))}
-    return {name: _finish(job) for name, job in jobs.items() if job}
-
-
 @functools.cache
 def load(name: str) -> ctypes.CDLL:
     """The library built from ``csrc/<name>.cu``, built first if needed."""
-    job = _start(name)
-    if job is not None:
-        _finish(job)
-    return ctypes.CDLL(str(library_path(name)))
+    out = library_path(name)
+    if not out.exists():
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        tmp = out.with_suffix(f".{os.getpid()}.tmp")
+        proc = subprocess.run(
+            [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")],
+            capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed for {out.name} "
+                               f"(exit {proc.returncode}):\n{proc.stdout}"
+                               f"{proc.stderr}")
+        os.replace(tmp, out)
+    return ctypes.CDLL(str(out))
