@@ -23,9 +23,25 @@ else.  Phases (every mismatch raises, so any failure exits non-zero):
      rounds) and ``flaky-clients`` with a round deadline.
   5. ``metro-congestion`` at K=10^5 (C=10^4 candidates): 8 policies x 1
      seed x 100 rounds.
+  6. the FedAvg-combine kernel against its plain version on the card, f32
+     and bf16, at (G, C, N) = (1, 5, N_cnn), (1, 100, N_cnn), (2, 5, N_cnn),
+     (1, 3, 1) and (1, 10, 24593) with some zero weights (N_cnn = 4,583,146,
+     the paper CNN): max abs error 0; the aggregation guard around it on a
+     NaN row and a huge-norm row against the plain path on the CPU.
+  7. the learning-coupled rounds on the card (both kernels, cuDNN conv, TF32
+     off) against the CPU (plain path) on the same CPU-made draws, at a
+     small CNN with BatchNorm off and on: selections exact, round times
+     within rtol 1e-5, the global model after round 1 within a stated
+     relative L2.
+  8. ``fl.engine.accuracy_sweep`` at full width (the paper CNN, K=100, S=5,
+     E=5, B=50, 50k/10k images): 8 policies x 1 seed x 2 rounds with the
+     selected cohort; ``elementwise_ucb`` with the all-K cohort for 2 rounds
+     (selections and round times equal to the selected run's); flaky-clients
+     with a deadline for 3 rounds; a torch.profiler breakdown of one
+     policy's round.
 
 Launch counts are zeroed before each sweep and read after it; each sweep
-must launch its kernel once per (policy, round).  The second-to-last line
+must launch its kernels once per (policy, round).  The second-to-last line
 is a JSON object with each kernel's launches, error against the plain
 version and times; the last line is the device summary.
 """
@@ -49,12 +65,34 @@ FP32_OPS_PER_S = 67e12         # H100 SXM float32 rate outside tensor cores
 DEADLINE = 2500.0              # round deadline (s) of the fault runs
 RTOL = 1e-6
 
+CSRC = "src/repro_torch/kernels/csrc/"
 KERNELS = {
     "bandit_round": dict(
-        replaces="src/repro/kernels/bandit_round.py:289"),
+        replaces="src/repro/kernels/bandit_round.py:289",
+        source=CSRC + "bandit_round.cu"),
     "bandit_round_sampled": dict(
-        replaces="src/repro/kernels/bandit_round.py:373"),
+        replaces="src/repro/kernels/bandit_round.py:373",
+        source=CSRC + "bandit_round.cu"),
+    "fedavg_combine": dict(
+        replaces="src/repro/kernels/fedavg.py:32",
+        source=CSRC + "fedavg.cu"),
 }
+N_CNN = 4_583_146              # parameters of the paper CNN
+FEDAVG_CASES = [(1, 5, N_CNN), (1, 100, N_CNN), (2, 5, N_CNN), (1, 3, 1),
+                (1, 10, 8192 * 3 + 17)]
+# the small CNN of phase 7 and of tests/test_torch_fl_engine.py
+SMALL_CNN = dict(image_size=8, channels=(8, 8), pool_after=(0,),
+                 fc_units=(16,))
+# phase 7's limits on the relative L2 distance of the card's global model
+# from the CPU's after one round: summation orders of cuDNN and the CPU
+# differ by ulps; train-mode BatchNorm amplifies them.  Read on an H100
+# (700 W): 4.94e-8 with BatchNorm off, 3.84e-6 with it on; each limit is
+# about 25 to 200 times its reading
+CARD_VS_CPU_RL2 = {False: 1e-5, True: 1e-4}
+# rounds of phase 8's runs, cut (never the width) to keep the script near
+# 4 minutes: a round takes ~2.6 s on the card with the selected cohort and
+# ~15 s with the all-K cohort
+FL_ROUNDS = {"selected": 2, "all": 2, "flaky": 3}
 
 # phase 2's cases, (scenario, G, K, S) by kernel; the last ones are the
 # shapes at which phases 3-5 drive each kernel
@@ -237,11 +275,14 @@ def phase_device_and_build() -> None:
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True, check=True)
     log(smi.stdout.strip().splitlines()[0])
-    cached = _build.library_path("bandit_round").exists()
+    names = ("bandit_round", "fedavg")
+    cached = [n for n in names if _build.library_path(n).exists()]
     t0 = time.perf_counter()
-    _build.load("bandit_round")
-    log(f"[1] bandit_round.cu {'loaded (cached)' if cached else 'built'} "
-        f"in {time.perf_counter() - t0:.1f} s")
+    _build.build(names)                  # one nvcc per source, in parallel
+    for name in names:
+        _build.load(name)
+    log(f"[1] {', '.join(n + '.cu' for n in names)} built in "
+        f"{time.perf_counter() - t0:.1f} s (cached: {cached or 'none'})")
 
 
 def phase_kernels(results: dict) -> None:
@@ -495,6 +536,331 @@ def phase_real_size() -> None:
                   n_rounds=100, n_clients=100_000)
 
 
+# ---------------------------------------------------------------------------
+# the learning-coupled slice: the FedAvg kernel and the accuracy sweep
+# ---------------------------------------------------------------------------
+
+def fedavg_bound(g: int, c: int, n: int, itemsize: int):
+    """Least time (ms) of one combine: C input rows and one output row per
+    grid point (plus the weights) over the memory rate, against its 2·C
+    float operations per element over the float32 rate."""
+    t_bytes = g * ((c + 1) * n * itemsize + 4 * c) / HBM_BYTES_PER_S * 1e3
+    t_ops = g * 2 * c * n / FP32_OPS_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def phase_fedavg_kernel(results: dict) -> None:
+    from repro_torch.fl import engine as fl
+    from repro_torch.kernels import fedavg as cuda_fedavg
+    from repro_torch.kernels import ref
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(6)
+    worst = 0.0
+    for dtype in (torch.float32, torch.bfloat16):
+        for g, c, n in FEDAVG_CASES:
+            x = torch.randn((g, c, n), generator=gen, device=dev).to(dtype)
+            w = torch.rand((g, c), generator=gen, device=dev)
+            w[:, ::3] = 0.0                       # unselected clients
+            w = w / w.sum(1, keepdim=True).clamp_min(1e-9)
+            got = cuda_fedavg.fedavg_combine_cuda(x, w)
+            want = ref.fedavg_combine_ref(x, w)
+            torch.cuda.synchronize()
+            err = (got.float() - want.float()).abs().max().item()
+            where = f"fedavg_combine {str(dtype)[6:]} G={g} C={c} N={n}"
+            if err != 0.0 or not torch.equal(got, want):
+                raise AssertionError(f"[6] {where}: kernel differs from the "
+                                     f"plain version (max abs err {err})")
+            worst = max(worst, err)
+            if n < N_CNN:
+                log(f"[6] {where}: exact")
+                continue
+            ms = time_ms(lambda: cuda_fedavg.fedavg_combine_cuda(x, w), 100)
+            pms = time_ms(lambda: ref.fedavg_combine_ref(x, w), 5)
+            lms = (time_ms(lambda: torch.einsum("gcn,gc->gn", x, w), 100)
+                   if dtype == torch.float32 else None)
+            bms, by = fedavg_bound(g, c, n, x.element_size())
+            log(f"[6] {where}: exact; kernel {ms:.4f} ms, plain {pms:.4f} ms, "
+                f"einsum {'n/a' if lms is None else f'{lms:.4f}'} ms, bound "
+                f"{bms:.4f} ms ({by}), {100 * bms / ms:.1f}% of bound")
+            if (dtype, g, c) == (torch.float32, 1, 5):   # the main path's
+                results["fedavg_combine"].update(
+                    ms=ms, plain_ms=pms, library_ms=lms, bound_ms=bms,
+                    bound_by=by, shape=dict(g=g, c=c, n=n))
+    results["fedavg_combine"]["max_abs_err"] = worst
+
+    # the aggregation guard around the kernel against the plain path
+    rows = torch.randn((1, 5, N_CNN), generator=gen, device=dev)
+    rows[0, 1, 17] = float("nan")
+    rows[0, 3] *= 1e9
+    w = torch.tensor([[3.0, 5.0, 2.0, 4.0, 6.0]], device=dev)
+    avg, w_ok, rej = fl.masked_fedavg(rows.clone(), w, guard=True)
+    avg_p, w_ok_p, rej_p = fl.masked_fedavg(rows.cpu(), w.cpu(), guard=True)
+    if not (torch.equal(avg.cpu(), avg_p) and torch.equal(w_ok.cpu(), w_ok_p)
+            and int(rej) == int(rej_p) == 2):
+        raise AssertionError("[6] guarded combine: card and CPU differ")
+    log("[6] guarded combine (a NaN row, a 1e9-scaled row; C=5, N=N_cnn): "
+        "2 rows rejected, card equals CPU bitwise")
+
+
+def reset_counts() -> None:
+    from repro_torch.kernels import bandit_round as cuda_round
+    from repro_torch.kernels import fedavg as cuda_fedavg
+    cuda_round.reset_launch_counts()
+    cuda_fedavg.reset_launch_counts()
+
+
+def launch_counts() -> dict:
+    from repro_torch.kernels import bandit_round as cuda_round
+    from repro_torch.kernels import fedavg as cuda_fedavg
+    return {**cuda_round.launch_counts, **cuda_fedavg.launch_counts}
+
+
+def tf32_flags() -> str:
+    return (f"cudnn.allow_tf32={torch.backends.cudnn.allow_tf32}, "
+            f"cuda.matmul.allow_tf32={torch.backends.cuda.matmul.allow_tf32}")
+
+
+def phase_card_vs_cpu() -> None:
+    """Three replayed rounds of two policies on the same CPU-made draws
+    through the card and through the CPU, TF32 off."""
+    from repro_torch.core import bandit
+    from repro_torch.fl import engine as fl
+    from repro_torch.models import cnn
+    from repro_torch.sim import engine as sim
+    from repro_torch.sim.scenarios import get_scenario
+    from repro_torch.utils.trees import tree_bytes
+
+    saved = (torch.backends.cudnn.allow_tf32,
+             torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    log(f"[7] {tf32_flags()}")
+    scen = get_scenario("paper-baseline")
+    try:
+        for bn in (False, True):
+            cfg = cnn.CnnConfig(batchnorm=bn, **SMALL_CNN)
+            tasks = {dev: fl.make_cnn_task(
+                scen, 12, cfg=cfg, n_train=600, n_test=400, eval_batch=200,
+                max_samples=40, batch_size=10, device=dev)
+                for dev in ("cpu", "cuda")}
+            cap = tasks["cpu"].part_idx.shape[1]
+            for policy in ("fedcs", "elementwise_ucb"):
+                gens = sim.make_generators((0,), "cpu")
+                draws = [(sim.draw_round_inputs(
+                    gens, n_seeds=1, n_etas=1, k=12, n_req=6, s_round=3,
+                    fast=False, fluctuate=True, policy=policy, scen=scen,
+                    fault=None), fl.draw_orders(
+                        gens["perm"], 1, tasks["cpu"].part_count, 2, cap))
+                    for _ in range(3)]
+                out = {}
+                for dev, task in tasks.items():
+                    moved = [(sim.RoundDraws(**{
+                        f: None if getattr(d, f) is None
+                        else getattr(d, f).to(dev)
+                        for f in d.__dataclass_fields__}), o.to(dev))
+                        for d, o in draws]
+                    kw = dict(policy=policy, scen=scen, s_round=3,
+                              hyper=bandit.DEFAULT_HYPERS[policy],
+                              model_bits=8.0 * tree_bytes(task.params0),
+                              epochs=2, batch_size=10, cohort="selected",
+                              cfg=cfg)
+                    eta = torch.tensor([1.5], device=dev)
+                    reset_counts()
+                    res = fl.run_fl_rounds(task, eta, moved, **kw)
+                    counts = launch_counts()
+                    one = fl.run_fl_rounds(task, eta, moved[:1], **kw)
+                    out[dev] = (res, one["params"].cpu(), counts)
+                (a, pa, ca), (b, pb, cb) = out["cuda"], out["cpu"]
+                where = f"[7] BN {'on' if bn else 'off'} {policy}"
+                if ca["bandit_round"] != 3 or ca["fedavg_combine"] != 3:
+                    raise AssertionError(f"{where}: card launches {ca}")
+                if not torch.equal(a["selected"].cpu(), b["selected"]):
+                    raise AssertionError(f"{where}: selections differ")
+                torch.testing.assert_close(a["round_times"].cpu(),
+                                           b["round_times"], rtol=1e-5,
+                                           atol=0)
+                rt_diff = (a["round_times"].cpu() - b["round_times"]).abs() \
+                    .max().item()
+                rl2 = ((pa - pb).norm() / pb.norm()).item()
+                if not rl2 < CARD_VS_CPU_RL2[bn]:
+                    raise AssertionError(f"{where}: global model after round "
+                                         f"1 at relative L2 {rl2:g}")
+                log(f"{where}: selections equal, round times max abs diff "
+                    f"{rt_diff:g} s, global model after round 1 at relative "
+                    f"L2 {rl2:.3g} (limit {CARD_VS_CPU_RL2[bn]:g}); accuracy "
+                    f"card {a['accuracy'].cpu().numpy().round(4).tolist()} "
+                    f"cpu {b['accuracy'].numpy().round(4).tolist()}; card "
+                    f"launches {ca}")
+    finally:
+        torch.backends.cudnn.allow_tf32, \
+            torch.backends.cuda.matmul.allow_tf32 = saved
+
+
+def run_fl_sweep(label: str, expect: dict, **kw):
+    """One accuracy sweep on the card with the launch counts zeroed before
+    and read after; each kernel must have launched ``expect`` times."""
+    from repro_torch.fl import engine as fl
+    reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = fl.accuracy_sweep(**kw)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = launch_counts()
+    if counts != expect:
+        raise AssertionError(f"[{label}] launches {counts} != {expect}")
+    p, s, r = res.accuracy.shape
+    if not (np.isfinite(res.accuracy).all()
+            and np.isfinite(res.round_times).all()
+            and ((res.accuracy >= 0) & (res.accuracy <= 1)).all()):
+        raise AssertionError(f"[{label}] non-finite or out-of-range traces")
+    log(f"[{label}] cohort={kw.get('cohort')} {p} policies x {s} seed x {r} "
+        f"rounds in {wall:.2f} s: {wall / (p * r):.3f} s per round, "
+        f"{p * r / wall:.3f} rounds/s; launches {counts}")
+    return res, counts
+
+
+def profile_fl_round(task, **kw) -> None:
+    """Where one full-width round goes: torch.profiler over one policy's
+    round, device time by kernel family and by engine range."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.fl import engine as fl
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fl.accuracy_sweep(task=task, **kw)
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    cuda = torch.autograd.DeviceType.CUDA
+    averages = prof.key_averages()
+    # the engine's ranges also show as device-side annotations; count
+    # kernels only
+    events = [(e.key, e.self_device_time_total) for e in averages
+              if e.device_type == cuda and not e.key.startswith("fl.")]
+    device_us = sum(t for _, t in events)
+    conv_us = sum(t for k, t in events if any(
+        w in k.lower() for w in ("conv", "cudnn", "xmma", "implicit_gemm",
+                                 "winograd", "fft")))
+    fedavg_us = sum(t for k, t in events if "fedavg_combine" in k)
+    round_us = sum(t for k, t in events if "bandit_round" in k)
+    top = sorted(events, key=lambda e: -e[1])[:6]
+    ranges = {e.key: e.cpu_time_total for e in averages
+              if e.key.startswith("fl.") and e.device_type != cuda}
+    log(f"[8p] profiled round ({kw.get('cohort')} cohort, "
+        f"{kw.get('policies')}): wall {wall_us / 1e3:.1f} ms, device busy "
+        f"{100 * device_us / wall_us:.1f}% (convolution kernels "
+        f"{100 * conv_us / wall_us:.1f}%, fedavg_combine "
+        f"{100 * fedavg_us / wall_us:.3f}%, bandit_round "
+        f"{100 * round_us / wall_us:.4f}%), idle "
+        f"{100 * (1 - device_us / wall_us):.1f}%")
+    log("[8p] engine ranges, host ms (the device runs behind the host; a "
+        "range ends when its last launch is queued, or at a sync): "
+        + ", ".join(f"{k}={c / 1e3:.1f}" for k, c in sorted(ranges.items())))
+    log("[8p] top device ops: " + ", ".join(
+        f"{k[:60]}={t / 1e3:.1f} ms" for k, t in top))
+
+
+def phase_fl_full_width(results: dict) -> None:
+    """The full-width sweeps in float32 (TF32 off, as in phase 7 and as the
+    JAX package computes); one side run at the end repeats a round with
+    PyTorch's default flags (TF32 convolutions) for its time."""
+    saved = (torch.backends.cudnn.allow_tf32,
+             torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        fl_full_width(results, saved)
+    finally:
+        torch.backends.cudnn.allow_tf32, \
+            torch.backends.cuda.matmul.allow_tf32 = saved
+
+
+def fl_full_width(results: dict, default_flags) -> None:
+    from repro_torch.core import bandit
+    from repro_torch.fl import engine as fl
+    from repro_torch.models import cnn
+
+    cfg = cnn.CnnConfig()
+    t0 = time.perf_counter()
+    task = fl.make_cnn_task("paper-baseline", 100, cfg=cfg, n_train=50_000,
+                            n_test=10_000, batch_size=50, device="cuda")
+    torch.cuda.synchronize()
+    n_params = cnn.param_count(task.params0)
+    if n_params != N_CNN:
+        raise AssertionError(f"[8] the CNN has {n_params} parameters")
+    log(f"[8] task: paper CNN ({n_params} parameters), K=100, shard cap "
+        f"{task.part_idx.shape[1]}, 50000/10000 images, built in "
+        f"{time.perf_counter() - t0:.1f} s; {tf32_flags()}")
+    common = dict(task=task, cfg=cfg, n_clients=100, s_round=5,
+                  frac_request=0.1, eta=1.5, epochs=5, batch_size=50,
+                  device="cuda")
+    p = len(bandit.POLICY_NAMES)
+    r_sel, r_all, r_flaky = (FL_ROUNDS[k] for k in ("selected", "all",
+                                                    "flaky"))
+    torch.cuda.reset_peak_memory_stats()
+    sel, counts = run_fl_sweep(
+        "8", {"bandit_round": p * r_sel, "bandit_round_sampled": 0,
+              "fedavg_combine": p * r_sel},
+        seeds=1, n_rounds=r_sel, cohort="selected", **common)
+    results["fedavg_combine"]["launches"] = counts["fedavg_combine"]
+    log(f"[8] selected cohort peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    log("[8] accuracy@elapsed by round:")
+    for name, acc, el in zip(sel.policies, sel.accuracy[:, 0],
+                             sel.elapsed[:, 0]):
+        log(f"[8]   {name:16s} " + " ".join(
+            f"{a:.4f}@{e:.0f}s" for a, e in zip(acc, el)))
+
+    torch.cuda.reset_peak_memory_stats()
+    i = sel.policies.index("elementwise_ucb")
+    all_k, _ = run_fl_sweep(
+        "8", {"bandit_round": r_all, "bandit_round_sampled": 0,
+              "fedavg_combine": r_all},
+        policies=("elementwise_ucb",), seeds=1, n_rounds=r_all,
+        cohort="all", **common)
+    if not (np.array_equal(all_k.selected[0], sel.selected[i, :, :r_all])
+            and np.array_equal(all_k.round_times[0],
+                               sel.round_times[i, :, :r_all])):
+        raise AssertionError("[8] the all-K cohort's selections or round "
+                             "times differ from the selected cohort's")
+    log(f"[8] all-K cohort: selections and round times equal the selected "
+        f"cohort's; accuracy {all_k.accuracy[0, 0].round(4).tolist()} vs "
+        f"{sel.accuracy[i, 0, :r_all].round(4).tolist()}; peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+
+    flaky, _ = run_fl_sweep(
+        "8", {"bandit_round": r_flaky, "bandit_round_sampled": 0,
+              "fedavg_combine": r_flaky},
+        scenario="flaky-clients", policies=("elementwise_ucb",), seeds=1,
+        n_rounds=r_flaky, cohort="selected", deadline=DEADLINE, **common)
+    fc = {k: int(v.sum()) for k, v in flaky.fault_counts().items()}
+    if sum(fc[k] for k in ("ok", "crashed", "churned", "deadline_missed",
+                           "corrupt")) != fc["dispatched"]:
+        raise AssertionError(f"[8] fault counts do not partition: {fc}")
+    log(f"[8] flaky-clients deadline={DEADLINE} s fault counts: {fc}")
+
+    profile_fl_round(task, policies=("elementwise_ucb",), seeds=1,
+                     n_rounds=1, cohort="selected", cfg=cfg, n_clients=100,
+                     s_round=5, frac_request=0.1, eta=1.5, epochs=5,
+                     batch_size=50, device="cuda")
+
+    # the same first round with PyTorch's default flags (TF32 convolutions)
+    torch.backends.cudnn.allow_tf32, \
+        torch.backends.cuda.matmul.allow_tf32 = default_flags
+    t0 = time.perf_counter()
+    tf32 = fl.accuracy_sweep(policies=("elementwise_ucb",), seeds=1,
+                             n_rounds=1, cohort="selected", **common)
+    torch.cuda.synchronize()
+    log(f"[8] with PyTorch's default flags ({tf32_flags()}): round 1 "
+        f"accuracy {tf32.accuracy[0, 0, 0]:.4f} against "
+        f"{sel.accuracy[i, 0, 0]:.4f} in float32, "
+        f"{time.perf_counter() - t0:.2f} s")
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: CUDA is not available; this script runs on "
@@ -502,10 +868,7 @@ def main() -> None:
     sys.path.insert(0, str(ROOT / "src"))
     import repro_torch  # noqa: F401  (fails outside a checkout)
 
-    results = {name: dict(name=name, route="cuda",
-                          source="src/repro_torch/kernels/csrc/"
-                                 "bandit_round.cu",
-                          library_ms=None, **meta)
+    results = {name: dict(name=name, route="cuda", library_ms=None, **meta)
                for name, meta in KERNELS.items()}
     t0 = time.perf_counter()
     phase_device_and_build()
@@ -515,6 +878,9 @@ def main() -> None:
     phase_fast_path(results)
     kernel_times(results, "bandit_round_sampled", g=8, k=10_000, s=5)
     phase_real_size()
+    phase_fedavg_kernel(results)
+    phase_card_vs_cpu()
+    phase_fl_full_width(results)
     log(f"[done] {time.perf_counter() - t0:.1f} s")
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")

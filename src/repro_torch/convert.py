@@ -1,10 +1,12 @@
-"""State carried between the JAX package and the port.
+"""State and weights carried between the JAX package and the port.
 
 The JAX package's ``bandit_jax.state_tree`` flattens a ``BanditState`` to a
 dict of arrays (one run, no grid axis); the engines' ``EnvArrays`` has the
-same four fields as the port's.  These functions move such dicts — of numpy
-arrays or anything ``np.asarray`` takes — to the port's tensors and back,
-so both packages can start from the same mid-run state.
+same four fields as the port's; ``models.cnn.init`` gives the CNN's weights
+as a nested dict ``{"conv{i}": {"w", "b", "bn_scale", "bn_bias"},
+"fc{j}": {"w", "b"}}``.  These functions move such dicts — of numpy arrays
+or anything ``np.asarray`` takes — to the port's tensors and back, so both
+packages can start from the same mid-run state and the same model.
 """
 
 from __future__ import annotations
@@ -64,3 +66,32 @@ def env_tree(env: EnvArrays) -> dict:
             "mean_gamma": env.mean_gamma.cpu().numpy(),
             "n_samples": env.n_samples.cpu().numpy(),
             "cell_id": env.cell_id.cpu().numpy().astype(np.int32)}
+
+
+def cnn_params_from_jax(tree: dict, device="cpu") -> dict:
+    """The port's CNN parameters (``models/cnn.py`` layout) from the JAX
+    package's ``cnn.init`` tree: conv ``w`` HWIO -> OIHW, fc ``w``
+    [in, out] -> [out, in].  ``fc0``'s inputs keep their (h, w, c) order,
+    which is the order the port flattens in."""
+    out = {}
+    for layer, leaves in tree.items():
+        for leaf, x in leaves.items():
+            x = np.asarray(x, np.float32)
+            if leaf == "w":
+                x = x.transpose(3, 2, 0, 1) if x.ndim == 4 else x.T
+            out[f"{layer}/{leaf}"] = torch.tensor(np.ascontiguousarray(x),
+                                                  device=device)
+    return out
+
+
+def cnn_params_to_jax(params: dict) -> dict:
+    """The inverse of :func:`cnn_params_from_jax`: a nested dict of numpy
+    arrays in the JAX package's layout."""
+    out: dict = {}
+    for name, x in params.items():
+        layer, leaf = name.split("/")
+        x = x.detach().cpu().numpy()
+        if leaf == "w":
+            x = x.transpose(2, 3, 1, 0) if x.ndim == 4 else x.T
+        out.setdefault(layer, {})[leaf] = np.ascontiguousarray(x)
+    return out

@@ -1,2 +1,2 @@
-"""Port of ``repro.kernels``: the bandit-round kernel, its plain
-version and the routing between them."""
+"""Port of ``repro.kernels``: the bandit-round and FedAvg-combine kernels,
+their plain versions and the routing between them."""

@@ -40,19 +40,33 @@ def library_path(name: str) -> Path:
     return BUILD_DIR / f"lib{name}-{digest[:16]}.so"
 
 
+def build(names) -> None:
+    """Build every library of ``names`` that is not built yet, one ``nvcc``
+    per source, all started together; raises if any build fails."""
+    procs = []
+    for name in names:
+        out = library_path(name)
+        if out.exists():
+            continue
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        tmp = out.with_suffix(f".{os.getpid()}.tmp")
+        procs.append((out, tmp, subprocess.Popen(
+            [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
+    failed = []
+    for out, tmp, proc in procs:
+        log, _ = proc.communicate()
+        if proc.returncode != 0:
+            failed.append(f"nvcc failed for {out.name} (exit "
+                          f"{proc.returncode}):\n{log}")
+        else:
+            os.replace(tmp, out)
+    if failed:
+        raise RuntimeError("\n".join(failed))
+
+
 @functools.cache
 def load(name: str) -> ctypes.CDLL:
     """The library built from ``csrc/<name>.cu``, built first if needed."""
-    out = library_path(name)
-    if not out.exists():
-        BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        tmp = out.with_suffix(f".{os.getpid()}.tmp")
-        proc = subprocess.run(
-            [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")],
-            capture_output=True, text=True)
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed for {out.name} "
-                               f"(exit {proc.returncode}):\n{proc.stdout}"
-                               f"{proc.stderr}")
-        os.replace(tmp, out)
-    return ctypes.CDLL(str(out))
+    build([name])
+    return ctypes.CDLL(str(library_path(name)))

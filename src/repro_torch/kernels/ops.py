@@ -1,15 +1,17 @@
-"""Routing of the fused bandit round — the port of ``repro.kernels.ops``
-(``bandit_round``, ``bandit_round_sampled``).
+"""Routing of the port's kernels — the port of ``repro.kernels.ops``
+(``bandit_round``, ``bandit_round_sampled``, ``fedavg_combine``).
 
-A CUDA state goes to the hand-written kernel (kernels/bandit_round.py),
-which updates it in place; a CPU state goes to the plain version
-(kernels/ref.py), which returns a new one.  Callers use the returned state
-and treat the one passed in as consumed.
+A CUDA tensor goes to the hand-written kernel (kernels/bandit_round.py,
+kernels/fedavg.py); a CPU tensor goes to the plain version
+(kernels/ref.py).  The bandit round's kernel updates the state in place and
+its plain version returns a new one: callers use the returned state and
+treat the one passed in as consumed.
 """
 
 from __future__ import annotations
 
 from repro_torch.kernels import bandit_round as _cuda
+from repro_torch.kernels import fedavg as _fedavg
 from repro_torch.kernels import ref as _ref
 
 
@@ -40,3 +42,11 @@ def bandit_round_sampled(state, cand_idx, u2, rand, theta_mu, gamma_mu,
               model_bits, hyper, policy=policy, s_round=s_round, decay=decay,
               fluctuate=fluctuate, fault=fault, deadline=deadline,
               fault_u=fault_u)
+
+
+def fedavg_combine(stacked, weights):
+    """Weighted FedAvg combine of [G, C, N] (or [C, N]) client rows with
+    [G, C] (or [C]) float32 weights -> [G, N] (or [N])."""
+    fn = (_fedavg.fedavg_combine_cuda if stacked.is_cuda
+          else _ref.fedavg_combine_ref)
+    return fn(stacked, weights)

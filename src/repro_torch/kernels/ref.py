@@ -1,9 +1,10 @@
-"""Plain PyTorch versions of the bandit-round kernels — the port of
-``repro.kernels.ref`` (``truncnorm_times_ref``, ``bandit_round_ref``).
+"""Plain PyTorch versions of the port's kernels — the port of
+``repro.kernels.ref`` (``truncnorm_times_ref``, ``bandit_round_ref``,
+``fedavg_ref``).
 
-They are the CPU path of ``kernels/ops.py`` and the reference that the CUDA
-kernel (kernels/csrc/bandit_round.cu) is held against on the card: the same
-candidate-compacted formulation, step by step.
+They are the CPU path of ``kernels/ops.py`` and the references that the
+CUDA kernels (kernels/csrc/bandit_round.cu, kernels/csrc/fedavg.cu) are held
+against on the card: the same formulation, step by step.
 """
 
 from __future__ import annotations
@@ -131,3 +132,21 @@ def bandit_round_sampled_ref(state, cand_idx, u2, rand, theta_mu, gamma_mu,
         state, cand_idx, t_ud_c, t_ul_c, rand_c, hyper, policy=policy,
         s_round=s_round, decay=decay, sliced=True, fault=fault,
         deadline=deadline, fault_u=fault_u)
+
+
+def fedavg_combine_ref(stacked: torch.Tensor,
+                       weights: torch.Tensor) -> torch.Tensor:
+    """Weighted FedAvg combine: ``stacked`` [G, C, N] (or [C, N]) client
+    rows, ``weights`` [G, C] (or [C]) -> [G, N] (or [N]).
+
+    The rows are read in float32 and summed left to right, ``acc = x0*w0``
+    then ``acc = acc + xc*wc``, each product and sum rounded on its own; the
+    result is written in the input's dtype.  The CUDA kernel rounds at the
+    same places, so in float32 the two agree bitwise.
+    """
+    x = stacked.float()
+    w = weights.float()[..., None]
+    acc = x[..., 0, :] * w[..., 0, :]
+    for c in range(1, x.shape[-2]):
+        acc = acc + x[..., c, :] * w[..., c, :]
+    return acc.to(stacked.dtype)

@@ -55,8 +55,10 @@ FAST_SAMPLING_MIN_K = 1024
 # policy's extra draws (the random policy's uniforms) do not shift another
 # stream: every policy and eta of a sweep sees the same candidates and
 # resource uniforms (common random numbers, as the JAX sweep's per-seed
-# keys give)
-STREAMS = ("cand", "time", "pol", "fault", "cong", "churn")
+# keys give).  "perm" (the clients' epoch orders of the learning-coupled
+# sweep, fl/engine.py) comes last, so the streams before it are the same
+# whether or not a sweep trains a model.
+STREAMS = ("cand", "time", "pol", "fault", "cong", "churn", "perm")
 
 
 def resolve_device(device=None) -> torch.device:
@@ -66,6 +68,8 @@ def resolve_device(device=None) -> torch.device:
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("CUDA is not available; pass device='cpu' to run "
                            "the plain PyTorch path on the CPU")
+    if dev.type == "cuda" and dev.index is None:      # name the card
+        dev = torch.device("cuda", torch.cuda.current_device())
     return dev
 
 
@@ -241,73 +245,103 @@ def _uniforms(d: RoundDraws):
                                                   d.u_time[:, 1])
 
 
+class RoundRunner:
+    """The protocol rounds of one policy for the [G] grid of ``eta``: holds
+    the bandit state and the (churning) mean resources between rounds.
+
+    ``fused`` runs each round through the fused round (the CUDA kernel on
+    the card); ``fused=False`` through the unfused mask pipeline.  ``fast``
+    picks the streamed path, where ``u_time`` holds candidate-slice
+    uniforms.  ``deadline`` switches on the failure layer, the scenario's
+    FaultModel giving the fault probabilities.
+    """
+
+    def __init__(self, env: EnvArrays, eta: torch.Tensor, *, policy: str,
+                 scen: Scenario, s_round: int, hyper: float,
+                 model_bits: float, fluctuate: bool = True,
+                 fast: bool = False, fused: bool = True,
+                 deadline: float | None = None):
+        g, k = eta.shape[0], env.mean_theta.shape[0]
+        self.env, self.eta, self.scen = env, eta, scen
+        self.policy, self.s_round, self.hyper = policy, s_round, hyper
+        self.model_bits, self.fluctuate = model_bits, fluctuate
+        self.fast, self.fused, self.deadline = fast, fused, deadline
+        self.fault = bandit.resolve_fault(scen.fault, deadline)
+        self.decay = bandit.policy_decay(policy)
+        self.state = bandit.BanditState.create(g, k,
+                                               device=env.mean_theta.device)
+        self.m_theta = env.mean_theta.expand(g, k).contiguous()
+        self.m_gamma = env.mean_gamma.expand(g, k).contiguous()
+        if fused and fast:
+            self._fn = bandit.make_sampled_round_fn(
+                policy, s_round, fluctuate=fluctuate, fault=self.fault,
+                deadline=deadline)
+        elif fused:
+            self._fn = bandit.make_round_fn(policy, s_round, fault=self.fault,
+                                            deadline=deadline)
+
+    def step(self, rnd: int, d: RoundDraws):
+        """Round ``rnd`` (1-based) on the draws ``d``.  Returns ``(sel [G, S],
+        round_time [G], flags [G, S] or None)``."""
+        env, eta, k = self.env, self.eta, self.m_theta.shape[1]
+        mult = scenario_thr_mult(self.scen, env.cell_id, d.cong, rnd)
+        mu_t = self.m_theta if mult is None else self.m_theta * mult
+        m_gamma, bits = self.m_gamma, self.model_bits
+        if self.fast and self.fused:
+            out = self._fn(self.state, d.cand, d.u_time, d.rand, mu_t,
+                           m_gamma, env.n_samples, eta, bits, self.hyper,
+                           fault_u=d.fault_u)
+        elif self.fused:
+            t_ud, t_ul = sample_times(env.n_samples, mu_t, m_gamma, eta, bits,
+                                      *_uniforms(d), fluctuate=self.fluctuate)
+            out = self._fn(self.state, d.cand, t_ud, t_ul, d.rand, self.hyper,
+                           fault_u=d.fault_u)
+        else:
+            if self.fast:
+                t_ud, t_ul, mask = bandit.scatter_cand_times(
+                    d.cand, *sample_times_candidates(
+                        d.u_time, d.cand, env.n_samples, mu_t, m_gamma, eta,
+                        bits, fluctuate=self.fluctuate), k)
+            else:
+                t_ud, t_ul = sample_times(env.n_samples, mu_t, m_gamma, eta,
+                                          bits, *_uniforms(d),
+                                          fluctuate=self.fluctuate)
+                mask = bandit.cand_mask(d.cand, k)
+            out = bandit.round_via_mask(
+                self.state, mask, t_ud, t_ul, d.rand, self.hyper,
+                policy=self.policy, s_round=self.s_round, decay=self.decay,
+                fault=self.fault, deadline=self.deadline, fault_u=d.fault_u)
+        self.state = out[0]
+        if self.scen.churn_prob > 0.0:
+            self.m_theta, self.m_gamma = churn_step(
+                d.churn, self.m_theta, m_gamma, self.scen.churn_prob)
+        return out[1], out[2], (out[3] if self.deadline is not None
+                                else None)
+
+
 def run_rounds(env: EnvArrays, eta: torch.Tensor,
                draws: Iterable[RoundDraws], *, policy: str, scen: Scenario,
                s_round: int, hyper: float, model_bits: float,
                fluctuate: bool = True, fast: bool = False,
                fused: bool = True, deadline: float | None = None):
-    """Run one round per element of ``draws`` for the [G] grid of ``eta``.
+    """Run one round per element of ``draws`` for the [G] grid of ``eta``
+    (arguments as :class:`RoundRunner`'s).
 
     Returns ``(round_times [G, R], flags [G, R, S] or None, state)``;
-    ``flags`` exist when the failure layer is on (``deadline`` set, the
-    scenario's FaultModel giving the fault probabilities).  ``fused`` runs
-    each round through the fused round (the CUDA kernel on the card);
-    ``fused=False`` through the unfused mask pipeline.  ``fast`` picks the
-    streamed path, where ``u_time`` holds candidate-slice uniforms.
+    ``flags`` exist when the failure layer is on (``deadline`` set).
     """
-    g, k = eta.shape[0], env.mean_theta.shape[0]
-    device = env.mean_theta.device
-    failure = deadline is not None
-    fault = bandit.resolve_fault(scen.fault, deadline)
-    decay = bandit.policy_decay(policy)
-    state = bandit.BanditState.create(g, k, device=device)
-    m_theta = env.mean_theta.expand(g, k).contiguous()
-    m_gamma = env.mean_gamma.expand(g, k).contiguous()
-    if fused and fast:
-        sampled_fn = bandit.make_sampled_round_fn(
-            policy, s_round, fluctuate=fluctuate, fault=fault,
-            deadline=deadline)
-    elif fused:
-        round_fn = bandit.make_round_fn(policy, s_round, fault=fault,
-                                        deadline=deadline)
+    runner = RoundRunner(env, eta, policy=policy, scen=scen, s_round=s_round,
+                         hyper=hyper, model_bits=model_bits,
+                         fluctuate=fluctuate, fast=fast, fused=fused,
+                         deadline=deadline)
     rts, flags = [], []
     for rnd, d in enumerate(draws, start=1):
-        mult = scenario_thr_mult(scen, env.cell_id, d.cong, rnd)
-        mu_t = m_theta if mult is None else m_theta * mult
-        if fast and fused:
-            out = sampled_fn(state, d.cand, d.u_time, d.rand, mu_t, m_gamma,
-                             env.n_samples, eta, model_bits, hyper,
-                             fault_u=d.fault_u)
-        elif fused:
-            t_ud, t_ul = sample_times(env.n_samples, mu_t, m_gamma, eta,
-                                      model_bits, *_uniforms(d),
-                                      fluctuate=fluctuate)
-            out = round_fn(state, d.cand, t_ud, t_ul, d.rand, hyper,
-                           fault_u=d.fault_u)
-        else:
-            if fast:
-                t_ud, t_ul, mask = bandit.scatter_cand_times(
-                    d.cand, *sample_times_candidates(
-                        d.u_time, d.cand, env.n_samples, mu_t, m_gamma, eta,
-                        model_bits, fluctuate=fluctuate), k)
-            else:
-                t_ud, t_ul = sample_times(env.n_samples, mu_t, m_gamma, eta,
-                                          model_bits, *_uniforms(d),
-                                          fluctuate=fluctuate)
-                mask = bandit.cand_mask(d.cand, k)
-            out = bandit.round_via_mask(
-                state, mask, t_ud, t_ul, d.rand, hyper, policy=policy,
-                s_round=s_round, decay=decay, fault=fault, deadline=deadline,
-                fault_u=d.fault_u)
-        state = out[0]
-        rts.append(out[2])
-        if failure:
-            flags.append(out[3])
-        if scen.churn_prob > 0.0:
-            m_theta, m_gamma = churn_step(d.churn, m_theta, m_gamma,
-                                          scen.churn_prob)
+        _, rt, fl = runner.step(rnd, d)
+        rts.append(rt)
+        flags.append(fl)
+    failure = deadline is not None
     return (torch.stack(rts, 1), torch.stack(flags, 1) if failure else None,
-            state)
+            runner.state)
 
 
 # ---------------------------------------------------------------------------

@@ -1,5 +1,6 @@
 """Shared helpers of the port's parity tests (tests/test_torch_*.py): numpy-
-made inputs and the moves between the JAX package's states and the port's.
+made inputs and the moves between the JAX package's states and the port's,
+the small CNN configs of the FL tests and the JAX-key-to-order derivation.
 
 Both packages get the same numpy arrays; the JAX side runs one grid point
 at a time, the port runs the [G] grid at once.
@@ -68,3 +69,53 @@ def assert_states_match(port_tree: dict, jax_trees: list[dict], rtol: float,
         else:
             np.testing.assert_allclose(got, want, rtol=rtol, atol=0,
                                        err_msg=f"{name} {msg}")
+
+
+# ---------------------------------------------------------------------------
+# FL slice: small CNN configs and the clients' epoch orders
+# ---------------------------------------------------------------------------
+
+# the small CNN of tests/test_fl_engine.py (one pool, one hidden fc layer)
+SMALL_CNN = dict(image_size=8, channels=(8, 8), pool_after=(0,),
+                 fc_units=(16,))
+# two pools and two hidden fc layers: fc0 sees a 2x2x8 map, so a flatten
+# in the wrong (c, h, w) order shows in the logits
+TWO_POOL_CNN = dict(image_size=8, channels=(4, 6, 8), pool_after=(0, 2),
+                    fc_units=(12, 10))
+
+
+def cnn_configs(kw: dict, batchnorm: bool):
+    """(JAX package's, port's) ``CnnConfig`` of the same fields."""
+    from repro.models import cnn as jcnn
+    from repro_torch.models import cnn as tcnn
+    return (jcnn.CnnConfig(batchnorm=batchnorm, **kw),
+            tcnn.CnnConfig(batchnorm=batchnorm, **kw))
+
+
+def jax_orders(perm_key, clients, counts, cap: int, epochs: int,
+               native: bool) -> np.ndarray:
+    """[len(clients), E, cap] epoch orders, drawn as the JAX package's
+    ``fl.engine.make_client_update`` draws them for the clients of
+    ``_train_round``: key ``fold_in(perm_key, client)``, split into E epoch
+    keys, then ``argsort(uniform + 2*(pos >= count))`` or, with ``native``
+    (every shard full), ``jax.random.permutation``."""
+    import jax
+    import jax.numpy as jnp
+
+    pos = jnp.arange(cap)
+
+    def one(client, count):
+        keys = jax.random.split(jax.random.fold_in(perm_key, client), epochs)
+        if native:
+            return jax.vmap(lambda kk: jax.random.permutation(kk, cap))(keys)
+        return jax.vmap(lambda kk: jnp.argsort(
+            jax.random.uniform(kk, (cap,)) + 2.0 * (pos >= count)))(keys)
+    return np.asarray(jax.vmap(one)(jnp.asarray(clients),
+                                    jnp.asarray(counts)))
+
+
+def rel_l2(a, b) -> float:
+    """||a - b|| / ||b|| over flat float64 copies."""
+    a = np.asarray(a, np.float64).ravel()
+    b = np.asarray(b, np.float64).ravel()
+    return float(np.linalg.norm(a - b) / np.linalg.norm(b))
