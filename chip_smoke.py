@@ -39,9 +39,33 @@ else.  Phases (every mismatch raises, so any failure exits non-zero):
      (selections and round times equal to the selected run's); flaky-clients
      with a deadline for 3 rounds; a torch.profiler breakdown of one
      policy's round.
+  9. the local top-S kernel against its plain version (exact) at the
+     shapes phase 10 gives it, (G, P, C, S) = (8, 4, 10^3, 5) and
+     (2, 8, 10^5, 5), and at (1, 8, 10^5, 5), (2, 2, 4096, 64), with tied
+     scores, -inf valid entries and all-invalid rows, beside torch.topk on
+     the masked scores; the UCB-score kernel against its plain version
+     (bitwise, or within UCB_MAX_ULP) at (G, K) = (8, 10^4), (1, 10^6)
+     with never-selected arms; ``select_naive`` through the kernel on a
+     learning state against the plain score and the policy formula.
+ 10. the client-sharded segmented sweep: paper-baseline at K=10^4 over
+     P=4 blocks (8 policies x 8 seeds x 100 rounds) against the flat fused
+     and unfused sweeps, flaky-clients with a deadline against the flat
+     fused sweep, paper-baseline at K=10^6 (C=10^5) over P=8 blocks
+     (8 x 2 x 20) against the flat unfused sweep (kernel #2 refuses
+     C=10^5): round times (and flags) bitwise equal; state bytes per
+     block, the draw against the round, a torch.profiler breakdown.
+ 11. the hierarchical rounds on the card against the CPU on the same
+     CPU-made draws (metro-congestion, K=10^5, 10 of 100 cells with 1000
+     and with 300 candidates each, 8 policies x 10 rounds): cell
+     selections, candidates, selections and cell counts equal, round
+     times and cell sums within rtol 1e-5; the hierarchical sweep at
+     K=10^5 (10 of 100 cells, 1000 candidates each) beside phase 5's flat
+     rate; paper-baseline (one cell, so the flat path) with
+     hierarchy="cells" bitwise equal to the flat sweep.
 
 Launch counts are zeroed before each sweep and read after it; each sweep
-must launch its kernels once per (policy, round).  The second-to-last line
+must launch its kernels once per (policy, round) (the local top-S once per
+round of a score policy) and no other kernel.  The second-to-last line
 is a JSON object with each kernel's launches, error against the plain
 version and times; the last line is the device summary.
 """
@@ -76,7 +100,14 @@ KERNELS = {
     "fedavg_combine": dict(
         replaces="src/repro/kernels/fedavg.py:32",
         source=CSRC + "fedavg.cu"),
+    "topk_slots": dict(
+        replaces="src/repro/kernels/bandit_round.py:259",
+        source=CSRC + "topk_slots.cu"),
+    "ucb_score": dict(
+        replaces="src/repro/kernels/ucb_score.py:39",
+        source=CSRC + "ucb_score.cu"),
 }
+SOURCES = ("bandit_round", "fedavg", "topk_slots", "ucb_score")
 N_CNN = 4_583_146              # parameters of the paper CNN
 FEDAVG_CASES = [(1, 5, N_CNN), (1, 100, N_CNN), (2, 5, N_CNN), (1, 3, 1),
                 (1, 10, 8192 * 3 + 17)]
@@ -214,9 +245,10 @@ def launcher(sampled):
             else cuda_round.bandit_round_launcher)
 
 
-def profiled_kernel_ms(launch, n: int) -> float | None:
-    """Device time per launch of the round kernel by torch.profiler, or
-    None when the profiler records no device time."""
+def profiled_kernel_ms(launch, n: int,
+                       kernel: str = "bandit_round_kernel") -> float | None:
+    """Device time per launch of ``kernel`` by torch.profiler, or None when
+    the profiler records no device time."""
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
@@ -224,7 +256,7 @@ def profiled_kernel_ms(launch, n: int) -> float | None:
             launch()
         torch.cuda.synchronize()
     total = sum(getattr(e, "self_device_time_total", 0)
-                for e in prof.key_averages() if "bandit_round_kernel" in e.key)
+                for e in prof.key_averages() if kernel in e.key)
     return total / n / 1e3 if total else None
 
 
@@ -275,7 +307,7 @@ def phase_device_and_build() -> None:
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True, check=True)
     log(smi.stdout.strip().splitlines()[0])
-    names = ("bandit_round", "fedavg")
+    names = SOURCES
     cached = [n for n in names if _build.library_path(n).exists()]
     t0 = time.perf_counter()
     _build.build(names)                  # one nvcc per source, in parallel
@@ -404,34 +436,47 @@ def profile_sweep(label: str, **kw) -> None:
     events = [(e.key, e.self_device_time_total)
               for e in prof.key_averages() if e.device_type == cuda]
     device_us = sum(t for _, t in events)
-    kernel_us = sum(t for k, t in events if "bandit_round_kernel" in k)
+    kernel_us = sum(t for k, t in events if any(
+        n in k for n in ("bandit_round_kernel", "topk_slots_kernel")))
     top = sorted(events, key=lambda e: -e[1])[:4]
     log(f"[{label}p] profiled sweep {kw.get('policies')} x "
         f"{kw.get('n_rounds')} rounds: wall {wall_us / 1e3:.1f} ms, device "
-        f"busy {100 * device_us / wall_us:.1f}% (round kernel "
+        f"busy {100 * device_us / wall_us:.1f}% (the repo's kernels "
         f"{100 * kernel_us / wall_us:.2f}%), idle "
         f"{100 * (1 - device_us / wall_us):.1f}%; top device ops "
         + ", ".join(f"{k[:40]}={t / 1e3:.2f} ms" for k, t in top))
 
 
+def check_launches(label: str, expect: dict) -> dict:
+    """The launch counts since the last reset; each kernel named in
+    ``expect`` must have launched that often, every other kernel never."""
+    counts = launch_counts()
+    want = {**{k: 0 for k in counts}, **expect}
+    if counts != want:
+        raise AssertionError(f"[{label}] launches {counts} != {want}")
+    return counts
+
+
+RATES: dict[str, float] = {}   # rounds/s of the last sweep of each phase
+
+
 def run_sweep(label: str, expect: dict, **kw):
     """One sweep on the card with the launch counts zeroed before and read
-    after; each kernel must have launched exactly ``expect`` times."""
-    from repro_torch.kernels import bandit_round as cuda_round
+    after; each kernel must have launched exactly ``expect`` times (the
+    kernels not named there: never)."""
     from repro_torch.sim import engine
-    cuda_round.reset_launch_counts()
+    reset_counts()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     res = engine.sweep(**kw)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    counts = dict(cuda_round.launch_counts)
-    if counts != expect:
-        raise AssertionError(f"{label}: launches {counts} != {expect}")
+    counts = check_launches(label, expect)
     p, e, s, r = res.round_times.shape
     if not (np.isfinite(res.round_times).all()
             and (res.round_times > 0).all()):
         raise AssertionError(f"{label}: non-finite or non-positive times")
+    RATES[label] = p * r / wall
     log(f"[{label}] {p} policies x {e} eta x {s} seeds x {r} rounds in "
         f"{wall:.2f} s: {p * r / wall:.1f} rounds/s "
         f"({p * e * s * r / wall:.0f} grid-point rounds/s); launches "
@@ -604,17 +649,18 @@ def phase_fedavg_kernel(results: dict) -> None:
         "2 rows rejected, card equals CPU bitwise")
 
 
+def _wrappers():
+    from repro_torch.kernels import bandit_round, fedavg, topk_slots, ucb_score
+    return bandit_round, fedavg, topk_slots, ucb_score
+
+
 def reset_counts() -> None:
-    from repro_torch.kernels import bandit_round as cuda_round
-    from repro_torch.kernels import fedavg as cuda_fedavg
-    cuda_round.reset_launch_counts()
-    cuda_fedavg.reset_launch_counts()
+    for mod in _wrappers():
+        mod.reset_launch_counts()
 
 
 def launch_counts() -> dict:
-    from repro_torch.kernels import bandit_round as cuda_round
-    from repro_torch.kernels import fedavg as cuda_fedavg
-    return {**cuda_round.launch_counts, **cuda_fedavg.launch_counts}
+    return {k: v for mod in _wrappers() for k, v in mod.launch_counts.items()}
 
 
 def tf32_flags() -> str:
@@ -708,9 +754,7 @@ def run_fl_sweep(label: str, expect: dict, **kw):
     res = fl.accuracy_sweep(**kw)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    counts = launch_counts()
-    if counts != expect:
-        raise AssertionError(f"[{label}] launches {counts} != {expect}")
+    counts = check_launches(label, expect)
     p, s, r = res.accuracy.shape
     if not (np.isfinite(res.accuracy).all()
             and np.isfinite(res.round_times).all()
@@ -861,6 +905,369 @@ def fl_full_width(results: dict, default_flags) -> None:
         f"{time.perf_counter() - t0:.2f} s")
 
 
+# ---------------------------------------------------------------------------
+# the scale-out slice: the local top-S and UCB-score kernels, the
+# client-sharded segmented sweep and the hierarchical sweep
+# ---------------------------------------------------------------------------
+
+# phase 9's top-S cases (G, P, C, S, kind); the first is the shape phase 10
+# gives the kernel at K=10^4, the third its shape at K=10^6
+TOPK_CASES = [(8, 4, 1_000, 5, "path"), (1, 8, 100_000, 5, "path"),
+              (2, 8, 100_000, 5, "path"), (2, 2, 4_096, 64, "path"),
+              (8, 4, 1_000, 5, "ties"), (2, 2, 4_096, 64, "edges"),
+              (1, 8, 100_000, 5, "edges")]
+UCB_CASES = [(8, 10_000), (1, 1_000_000)]
+UCB_MAX_ULP = 2          # phase 9's limit on the score kernel's ulp gap
+
+
+def topk_inputs(g, p, c, kind, gen):
+    """[G, P, C] scores and validity on the card.  "path": uniform scores,
+    each slot owned by one random shard and masked to -inf elsewhere, as
+    the segmented round hands them over; "ties": four distinct values,
+    unmasked; "edges": ties, -inf at valid entries, an all-invalid row and
+    a row whose live scores are all -inf."""
+    dev = torch.device("cuda")
+    score = torch.rand((g, p, c), generator=gen, device=dev)
+    owner = torch.randint(0, p, (g, 1, c), generator=gen, device=dev)
+    valid = owner == torch.arange(p, device=dev).view(1, p, 1)
+    if kind == "path":
+        score = torch.where(valid, score, float("-inf"))
+    else:
+        score = (score * 4).floor() / 4
+        valid = torch.rand((g, p, c), generator=gen, device=dev) < 0.7
+    if kind == "edges":
+        score[..., ::7] = float("-inf")
+        valid[0, 0] = False
+        score[-1, -1] = float("-inf")
+    return score.contiguous(), valid.contiguous()
+
+
+def topk_bound(rows: int, c: int, s: int):
+    """Least time (ms) of one local top-S: each score (4 B) and validity
+    byte read once, S (value, slot) pairs written, over the memory rate."""
+    return (rows * (c * 5 + s * 8)) / HBM_BYTES_PER_S * 1e3, "bytes"
+
+
+def phase_topk_kernel(results: dict) -> None:
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import topk_slots as cuda_topk
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(9)
+    for g, p, c, s, kind in TOPK_CASES:
+        score, valid = topk_inputs(g, p, c, kind, gen)
+        vals, slots = cuda_topk.local_topk_cuda(score, valid, s)
+        pv, ps = ref.local_topk_ref(score, valid, s)
+        torch.cuda.synchronize()
+        where = f"topk_slots G={g} P={p} C={c} S={s} {kind}"
+        if not (torch.equal(slots, ps) and torch.equal(vals, pv)):
+            raise AssertionError(f"[9] {where}: kernel differs from the plain "
+                                 f"version")
+        if kind != "path":
+            log(f"[9] {where}: exact (exhausted steps "
+                f"{int((slots < 0).sum())})")
+            continue
+        masked = torch.where(valid, score, float("-inf"))
+        lib = masked.topk(s, dim=-1)
+        if not torch.equal(lib.values, vals):
+            raise AssertionError(f"[9] {where}: torch.topk values differ")
+        def launch():
+            return cuda_topk.local_topk_cuda(score, valid, s)
+        ms = time_ms(launch, 100)
+        dev_ms = profiled_kernel_ms(launch, 50, "topk_slots_kernel")
+        pms = time_ms(lambda: ref.local_topk_ref(score, valid, s), 3)
+        lms = time_ms(lambda: masked.topk(s, dim=-1), 100)
+        bms, by = topk_bound(g * p, c, s)
+        log(f"[9] {where}: exact; kernel {ms:.4f} ms (device time by "
+            f"torch.profiler {'none' if dev_ms is None else f'{dev_ms:.4f}'}"
+            f" ms), plain {pms:.4f} ms, torch.topk {lms:.4f} ms, bound "
+            f"{bms:.6f} ms ({by}), {100 * bms / ms:.1f}% of bound")
+        if (g, p, c, s) == TOPK_CASES[0][:4]:
+            results["topk_slots"].update(
+                ms=ms, plain_ms=pms, library_ms=lms, bound_ms=bms,
+                bound_by=by, shape=dict(g=g, p=p, c=c, s=s))
+    results["topk_slots"]["max_abs_err"] = 0.0
+
+
+def ucb_inputs(g, k, gen):
+    dev = torch.device("cuda")
+    n = torch.randint(0, 50, (g, k), generator=gen, device=dev,
+                      dtype=torch.int32)
+    n[torch.rand((g, k), generator=gen, device=dev) < 0.2] = 0
+    sums = n.float() * (1.0 + 900.0 * torch.rand((g, k), generator=gen,
+                                                 device=dev))
+    return sums, n, n.sum(1, dtype=torch.int32)
+
+
+def phase_ucb_kernel(results: dict) -> None:
+    from repro_torch.core import bandit
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import ucb_score as cuda_ucb
+    from repro_torch.sim.engine import topk_lowest
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(10)
+    worst_ulp, worst_abs = 0, 0.0
+    for g, k in UCB_CASES:
+        sums, n, total = ucb_inputs(g, k, gen)
+        total[0] = 1                        # log max(total, 2) at the floor
+        got = cuda_ucb.ucb_scores_cuda(sums, n, total, 1000.0)
+        want = ref.ucb_scores_ref(sums, n, total, 1000.0)
+        torch.cuda.synchronize()
+        ulp = int((got.view(torch.int32).long()
+                   - want.view(torch.int32).long()).abs().max())
+        err = float((got - want).abs().max())
+        where = f"ucb_score G={g} K={k}"
+        if ulp > UCB_MAX_ULP or not torch.equal(got[n == 0], want[n == 0]):
+            raise AssertionError(f"[9] {where}: kernel {ulp} ulp from the "
+                                 f"plain version (limit {UCB_MAX_ULP})")
+        worst_ulp, worst_abs = max(worst_ulp, ulp), max(worst_abs, err)
+        def launch():
+            return cuda_ucb.ucb_scores_cuda(sums, n, total, 1000.0)
+        ms = time_ms(launch, 100)
+        dev_ms = profiled_kernel_ms(launch, 50, "ucb_score_kernel")
+        pms = time_ms(lambda: ref.ucb_scores_ref(sums, n, total, 1000.0), 10)
+        bms = (g * (12 * k + 4)) / HBM_BYTES_PER_S * 1e3
+        log(f"[9] {where}: {'bitwise equal' if ulp == 0 else f'{ulp} ulp'} "
+            f"(max abs err {err:g}); kernel {ms:.4f} ms (device time by "
+            f"torch.profiler {'none' if dev_ms is None else f'{dev_ms:.4f}'}"
+            f" ms), plain {pms:.4f} ms, bound {bms:.6f} ms (bytes), "
+            f"{100 * bms / ms:.1f}% of bound")
+        if (g, k) == UCB_CASES[0]:
+            results["ucb_score"].update(ms=ms, plain_ms=pms, bound_ms=bms,
+                                        bound_by="bytes",
+                                        shape=dict(g=g, k=k))
+    results["ucb_score"]["max_abs_err"] = worst_abs
+
+    # the main path: select_naive on a learning state, through the kernel,
+    # against the policy formula and the plain score on the same state
+    g, k, c, s, rounds = 8, 10_000, 1_000, 5, 20
+    dev = torch.device("cuda")
+    state = bandit.BanditState.create(g, k, device=dev)
+    reset_counts()
+    same = 0
+    for _ in range(rounds):
+        cands = topk_lowest(torch.rand((g, k), generator=gen, device=dev),
+                            c).to(torch.int32)
+        sel = bandit.select_naive(state, cands, s)            # the kernel
+        launched = launch_counts()["ucb_score"]
+        mask = bandit.candidate_mask(k, cands)
+        plain = bandit._top_score(ref.ucb_scores_ref(
+            state.sum_tinc, state.n_sel, state.total, 1000.0), mask, s)
+        formula = bandit._select_with_rand("naive_ucb", state, mask, None,
+                                           None, None, 1000.0, s)
+        if launch_counts()["ucb_score"] != launched:
+            raise AssertionError("[9] a comparison launched the kernel")
+        if not (torch.equal(sel, plain) and torch.equal(sel, formula)):
+            raise AssertionError("[9] select_naive: kernel route differs")
+        same += 1
+        tinc = 10.0 + 300.0 * torch.rand((g, s), generator=gen, device=dev)
+        state = bandit.observe(state, sel, tinc, tinc, tinc)
+    counts = check_launches("9", {"ucb_score": rounds})
+    results["ucb_score"]["launches"] = counts["ucb_score"]
+    # on the card every route of the index API scores through the kernel:
+    # a tensor alpha and use_kernel=False too
+    reset_counts()
+    routes = (bandit.make_select_fn("naive_ucb", s)(
+        state, mask, None, None, None, torch.tensor(1000.0, device=dev)),
+        bandit.select_naive(state, cands, s, use_kernel=False))
+    check_launches("9", {"ucb_score": len(routes)})
+    want = bandit.select_naive(state, cands, s)
+    if not all(torch.equal(r, want) for r in routes):
+        raise AssertionError("[9] select_naive routes differ on the card")
+    log(f"[9] select_naive G={g} K={k} C={c} S={s}, {rounds} rounds on a "
+        f"learning state: selections through the kernel equal the plain "
+        f"score's and the policy formula's in {same}/{rounds} rounds; "
+        f"launches {counts['ucb_score']} (worst ulp gap {worst_ulp})")
+
+
+def segmented_vs(label, seg, other, name, flags=False) -> None:
+    same = np.array_equal(seg.round_times, other.round_times) and (
+        not flags or np.array_equal(seg.flags, other.flags))
+    if not same:
+        d = np.abs(seg.round_times.astype(np.float64) - other.round_times)
+        raise AssertionError(f"[{label}] segmented differs from {name}: max "
+                             f"abs diff {d.max():g} s in {(d > 0).sum()} "
+                             f"rounds")
+    log(f"[{label}] segmented equals {name} bitwise (round times"
+        f"{' and flags' if flags else ''})")
+
+
+def time_draw_vs_round(label: str, **kw) -> None:
+    """Host ms per round of the draw step and of the round itself (each
+    ended by a synchronise), for one policy's sweep shape."""
+    from repro_torch.core import bandit
+    from repro_torch.sim import engine
+    from repro_torch.sim.scenarios import get_scenario
+    scen = get_scenario(kw["scenario"])
+    k, p, rounds = kw["n_clients"], kw["shards"], kw["n_rounds"]
+    n_req, cells = math.ceil(0.1 * k), kw.get("cells")
+    dev = torch.device("cuda")
+    env = engine.EnvArrays.from_scenario(
+        scen, scen.build_env(k, np.random.default_rng(0)), dev)
+    eta = torch.full((kw["seeds"],), 1.5, device=dev)
+    draw_cells = None
+    if cells:
+        draw_cells = (cells[0], -(-k // scen.congestion_cells))
+        n_req = cells[0] * cells[1]
+    for policy in kw["policies"]:
+        gens = engine.make_generators(range(kw["seeds"]), dev)
+        runner = engine.RoundRunner(
+            env, eta, policy=policy, scen=scen, s_round=5,
+            hyper=bandit.DEFAULT_HYPERS[policy], model_bits=146.4e6,
+            fast=True, shards=p, cells=cells)
+        t_draw = t_round = 0.0
+        for rnd in range(1, rounds + 1):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            d = engine.draw_round_inputs(
+                gens, n_seeds=kw["seeds"], n_etas=1, k=k, n_req=n_req,
+                s_round=5, fast=True, fluctuate=True, policy=policy,
+                scen=scen, fault=None, cells=draw_cells)
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            runner.step(rnd, d)
+            torch.cuda.synchronize()
+            t_draw += t1 - t0
+            t_round += time.perf_counter() - t1
+        log(f"[{label}t] {policy} K={k} "
+            f"{f'P={p}' if p else f'cells={cells}'} G={kw['seeds']}: draw "
+            f"{1e3 * t_draw / rounds:.3f} ms, round "
+            f"{1e3 * t_round / rounds:.3f} ms per round (host clock, "
+            f"synchronised)")
+
+
+def phase_segmented(results: dict) -> None:
+    from repro_torch.distributed.sharding import bandit_state_bytes
+    n_score = 2                            # naive_ucb and random rank scores
+    base = dict(scenario="paper-baseline", etas=(1.5,), seeds=8,
+                n_rounds=100, n_clients=10_000)
+    seg, counts = run_sweep("10", {"topk_slots": n_score * 100},
+                            shard="clients", devices=4, **base)
+    results["topk_slots"]["launches"] = counts["topk_slots"]
+    flat, _ = run_sweep("10", {"bandit_round_sampled": 8 * 100}, **base)
+    segmented_vs("10", seg, flat, "the flat fused path (bandit_round_sampled)")
+    unfused, _ = run_sweep("10", {}, fused=False, **base)
+    segmented_vs("10", seg, unfused, "the flat unfused path")
+
+    flaky = dict(base, scenario="flaky-clients", deadline=DEADLINE)
+    seg, _ = run_sweep("10", {"topk_slots": n_score * 100}, shard="clients",
+                       devices=4, **flaky)
+    flat, _ = run_sweep("10", {"bandit_round_sampled": 8 * 100}, **flaky)
+    segmented_vs("10", seg, flat, "the flat fused path, flaky-clients",
+                 flags=True)
+
+    big = dict(scenario="paper-baseline", etas=(1.5,), seeds=2, n_rounds=20,
+               n_clients=1_000_000)
+    torch.cuda.reset_peak_memory_stats()
+    seg, _ = run_sweep("10", {"topk_slots": n_score * 20}, shard="clients",
+                       devices=8, **big)
+    seg_mib = torch.cuda.max_memory_allocated() / 2**20
+    torch.cuda.reset_peak_memory_stats()
+    unfused, _ = run_sweep("10", {}, fused=False, **big)
+    flat_mib = torch.cuda.max_memory_allocated() / 2**20
+    segmented_vs("10", seg, unfused, "the flat unfused path at K=10^6")
+    block, whole = (bandit_state_bytes(1_000_000, 8),
+                    bandit_state_bytes(1_000_000))
+    log(f"[10] K=10^6 C=10^5 P=8: state per block {block} B per grid point "
+        f"(unsharded {whole} B); peak device memory segmented {seg_mib:.1f} "
+        f"MiB, flat unfused {flat_mib:.1f} MiB")
+    time_draw_vs_round("10", scenario="paper-baseline", seeds=2, n_rounds=10,
+                       n_clients=1_000_000, shards=8,
+                       policies=("naive_ucb", "elementwise_ucb"))
+    profile_sweep("10", scenario="paper-baseline", policies=("naive_ucb",),
+                  etas=(1.5,), seeds=2, n_rounds=20, n_clients=1_000_000,
+                  shard="clients", devices=8)
+
+
+def check_hierarchy_against_cpu() -> None:
+    """Hierarchical rounds on the same CPU-made draws through the card and
+    the CPU: each round's cell selection, candidates (``select_cells`` and
+    ``hier_cand_idx`` recomputed from the runner's aggregates, as its step
+    computes them) and client selection equal, round times and the cell
+    aggregates within rtol 1e-5.  ``n_req_cell`` below the cells'
+    population makes the per-cell ranking choose."""
+    from repro_torch.core import bandit
+    from repro_torch.sim import engine
+    from repro_torch.sim.scenarios import get_scenario
+
+    scen = get_scenario("metro-congestion")
+    k, rounds, n_cells = 100_000, 10, scen.congestion_cells
+    m = -(-k // n_cells)
+    env_np = scen.build_env(k, np.random.default_rng(0))
+    for cells in ((10, 1000), (10, 300)):
+        worst, n_req = 0.0, cells[0] * cells[1]
+        for policy in bandit.POLICY_NAMES:
+            gens = engine.make_generators((0, 1), "cpu")
+            draws = [engine.draw_round_inputs(
+                gens, n_seeds=2, n_etas=1, k=k, n_req=n_req, s_round=5,
+                fast=True, fluctuate=True, policy=policy, scen=scen,
+                fault=None, cells=(cells[0], m)) for _ in range(rounds)]
+            out = {}
+            for dev in ("cpu", "cuda"):
+                env = engine.EnvArrays.from_scenario(scen, env_np, dev)
+                runner = engine.RoundRunner(
+                    env, torch.tensor([1.5, 1.5], device=dev),
+                    policy=policy, scen=scen, s_round=5,
+                    hyper=bandit.DEFAULT_HYPERS[policy], model_bits=146.4e6,
+                    fast=True, cells=cells)
+                rec = {"cells": [], "cand": [], "sel": [], "rt": []}
+                for rnd, d in enumerate(draws, start=1):
+                    d = engine.RoundDraws(**{
+                        f: None if getattr(d, f) is None
+                        else getattr(d, f).to(dev)
+                        for f in d.__dataclass_fields__})
+                    sel_c = bandit.select_cells(runner.cell_n,
+                                                runner.cell_tinc, cells[0])
+                    rec["cells"].append(sel_c.cpu())
+                    rec["cand"].append(bandit.hier_cand_idx(
+                        d.cell_u, sel_c, k, n_cells, cells[1]).cpu())
+                    sel, rt, _ = runner.step(rnd, d)
+                    rec["sel"].append(sel.cpu())
+                    rec["rt"].append(rt.cpu())
+                out[dev] = ({n: torch.stack(v) for n, v in rec.items()},
+                            runner.cell_n.cpu(), runner.cell_tinc.cpu())
+            (a, an, at), (b, bn, bt) = out["cuda"], out["cpu"]
+            where = f"[11] card vs CPU cells={cells} {policy}"
+            for name in ("cells", "cand", "sel"):
+                if not torch.equal(a[name], b[name]):
+                    raise AssertionError(f"{where}: {name} differ")
+            if not torch.equal(an, bn):
+                raise AssertionError(f"{where}: cell counts differ")
+            torch.testing.assert_close(a["rt"], b["rt"], rtol=1e-5, atol=0)
+            torch.testing.assert_close(at, bt, rtol=1e-5, atol=0)
+            worst = max(worst, (a["rt"] - b["rt"]).abs().max().item())
+        log(f"[11] card vs CPU on the same draws, metro-congestion K={k}, "
+            f"(s_cells, n_req_cell)={cells}, 8 policies x 2 grid points x "
+            f"{rounds} rounds: cell selections, candidates, selections and "
+            f"cell counts equal, round times max abs diff {worst:g} s")
+
+
+def phase_hierarchy() -> None:
+    check_hierarchy_against_cpu()
+    hier, _ = run_sweep("11", {"bandit_round_sampled": 8 * 100},
+                        scenario="metro-congestion", etas=(1.5,), seeds=1,
+                        n_rounds=100, n_clients=100_000, hierarchy="cells")
+    flat = RATES.get("5")
+    log(f"[11] metro-congestion K=100000 hierarchy=cells (10 of 100 cells, "
+        f"1000 candidates each): {RATES['11']:.1f} rounds/s against the flat "
+        f"path's {'not run' if flat is None else f'{flat:.1f}'} (phase 5)")
+    time_draw_vs_round("11", scenario="metro-congestion", seeds=1,
+                       n_rounds=20, n_clients=100_000, shards=None,
+                       cells=(10, 1000), policies=("elementwise_ucb",))
+    profile_sweep("11", scenario="metro-congestion",
+                  policies=("elementwise_ucb",), etas=(1.5,), seeds=1,
+                  n_rounds=100, n_clients=100_000, hierarchy="cells")
+    base = dict(scenario="paper-baseline", etas=(1.5,), seeds=2, n_rounds=20,
+                n_clients=10_000)
+    cells, _ = run_sweep("11", {"bandit_round_sampled": 8 * 20},
+                         hierarchy="cells", **base)
+    flat, _ = run_sweep("11", {"bandit_round_sampled": 8 * 20}, **base)
+    if not np.array_equal(cells.round_times, flat.round_times):
+        raise AssertionError("[11] one cell: hierarchy='cells' differs from "
+                             "the flat sweep")
+    log("[11] paper-baseline (one cell) with hierarchy='cells' equals the "
+        "flat sweep bitwise (the routing: one cell runs the flat path)")
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: CUDA is not available; this script runs on "
@@ -881,6 +1288,10 @@ def main() -> None:
     phase_fedavg_kernel(results)
     phase_card_vs_cpu()
     phase_fl_full_width(results)
+    phase_topk_kernel(results)
+    phase_ucb_kernel(results)
+    phase_segmented(results)
+    phase_hierarchy()
     log(f"[done] {time.perf_counter() - t0:.1f} s")
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")

@@ -1,4 +1,4 @@
-"""PyTorch port of ``repro.core.bandit_jax`` — the flat, single-device parts.
+"""PyTorch port of ``repro.core.bandit_jax``.
 
 The bandit state and every step of one protocol round — policy scoring,
 Algorithm 1 / top-S selection, the realized upload schedule, the
@@ -17,10 +17,14 @@ Counterparts (JAX package -> here): ``BanditState``, ``ucb_bonus_arrays``,
 ``resolve_fault``, ``censor_slots``, ``POLICY_STATS``, ``policy_kind``,
 ``policy_scores``, ``policy_decay``, ``DEFAULT_HYPERS``,
 ``scatter_cand_times``, ``round_via_mask``, ``make_round_fn``,
-``make_sampled_round_fn``.  Not ported yet: the client-sharded segmented
-round, the hierarchical cell bandit and the index-based ``select_*`` API.
-Not ported: ``FUSED_MIN_K``, the JAX package's CPU-timed small-K routing
-to the unfused pipeline; a fused round here always takes the fused path.
+``make_sampled_round_fn``, ``make_segmented_round_fn`` (the client-sharded
+round), the index-based selection API (``candidate_mask``, ``select_*``,
+``SELECT_FNS``, ``make_select_fn``) and the hierarchical cell bandit
+(``cell_scores``, ``select_cells``, ``select_slots_all``, ``hier_cand_idx``,
+``update_cell_stats``).  Not ported: ``FUSED_MIN_K`` and ``KERNEL_MIN_K``,
+the JAX package's small-K routings timed for its own CPU and TPU; here a
+fused round always takes the fused path, and a Python-number alpha always
+scores through ``ops.ucb_scores``.
 """
 
 from __future__ import annotations
@@ -46,6 +50,27 @@ def f32(x: float) -> float:
     """``x`` rounded to the nearest float32, as a Python float — the value a
     weakly typed Python scalar takes in a float32 JAX expression."""
     return float(np.float32(x))
+
+
+@functools.cache
+def _scalar(value: float, device: torch.device) -> torch.Tensor:
+    return torch.tensor(value, dtype=torch.float32, device=device)
+
+
+def fdiv(a, b) -> torch.Tensor:
+    """``a / b`` rounded once, as IEEE float32 division, where one side may
+    be a Python number.  PyTorch divides by a host scalar on the card as a
+    multiplication by its reciprocal, and divides a number by a tensor as
+    ``reciprocal(tensor) * number`` everywhere: two roundings, up to one
+    ulp off the quotient that the JAX package and the CUDA kernels compute.
+    A 0-dim float32 tensor on the operand's device takes the scalar's
+    place (made once per value and device)."""
+    t = a if isinstance(a, torch.Tensor) else b
+
+    def wrap(v):
+        return v if isinstance(v, torch.Tensor) else _scalar(float(v),
+                                                             t.device)
+    return wrap(a) / wrap(b)
 
 
 @dataclasses.dataclass
@@ -114,7 +139,8 @@ def _gather(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
 
 def observe(state: BanditState, idx: torch.Tensor, t_ud: torch.Tensor,
             t_ul: torch.Tensor, tinc: torch.Tensor, decay: float = 1.0,
-            fail: torch.Tensor | None = None) -> BanditState:
+            fail: torch.Tensor | None = None,
+            count_valid: torch.Tensor | None = None) -> BanditState:
     """Batch reward update for the selected clients (``idx``: [G, S]).
 
     Entries with ``idx < 0`` (the -1 padding of an exhausted selection) are
@@ -122,6 +148,10 @@ def observe(state: BanditState, idx: torch.Tensor, t_ud: torch.Tensor,
     the ``disc_*`` statistics before this round's observations are added;
     at exactly 1.0 they are left alone, as nothing reads them.  ``fail``
     ([G, S] bool) marks censored observations, counted in ``n_fail``.
+    ``count_valid`` ([G] int) replaces the number of valid entries of
+    ``idx`` in the ``total``/``disc_total`` counters: a client shard
+    observes only its own clients but credits the round's global count, so
+    every shard's counters stay equal to the flat path's.
     Returns a new state; ``state`` is not modified.
 
     Selected clients are distinct within a row, so every update is a
@@ -132,7 +162,8 @@ def observe(state: BanditState, idx: torch.Tensor, t_ud: torch.Tensor,
     idx = idx.long()
     valid = (idx >= 0) & (idx < k)
     safe = torch.where(valid, idx, 0)
-    n_valid = valid.sum(1, dtype=torch.int32)
+    n_valid = (valid.sum(1, dtype=torch.int32) if count_valid is None
+               else count_valid.to(torch.int32))
 
     def add(x, v):
         return x.scatter_add(1, safe, torch.where(valid, v, 0).to(x.dtype))
@@ -433,13 +464,14 @@ def policy_scores(policy: str, obs: dict, total, disc_total, t_ud, t_ul,
         n = obs["hist_n"].clamp_min(1).float()
         return "greedy", obs["hist_sum_ud"] / n, obs["hist_sum_ul"] / n
     if policy == "naive_ucb":
-        score = (-_mean(obs["sum_tinc"], obs["n_sel"]) / hyper
+        score = (fdiv(-_mean(obs["sum_tinc"], obs["n_sel"]), hyper)
                  + ucb_bonus_arrays(obs["n_sel"], total))
         return "score", score, None
     if policy == "elementwise_ucb":
         bonus = ucb_bonus_arrays(obs["n_sel"], total)
-        return ("greedy", _mean(obs["sum_ud"], obs["n_sel"]) / hyper - bonus,
-                _mean(obs["sum_ul"], obs["n_sel"]) / hyper - bonus)
+        return ("greedy",
+                fdiv(_mean(obs["sum_ud"], obs["n_sel"]), hyper) - bonus,
+                fdiv(_mean(obs["sum_ul"], obs["n_sel"]), hyper) - bonus)
     if policy == "random":
         return "score", rand, None
     if policy == "oracle":
@@ -453,12 +485,13 @@ def policy_scores(policy: str, obs: dict, total, disc_total, t_ud, t_ul,
         log_total = torch.log(disc_total.clamp_min(2.0))[:, None]
         b = torch.sqrt(log_total / (2.0 * n_safe))
         bonus = torch.where(cold, BIG, b.clamp_max(BIG))
-        return ("greedy", mean_ud / hyper - bonus, mean_ul / hyper - bonus)
+        return ("greedy", fdiv(mean_ud, hyper) - bonus,
+                fdiv(mean_ul, hyper) - bonus)
     if policy == "sliding_ucb":
         n = obs["hist_n"].clamp_min(1).float()
         bonus = ucb_bonus_arrays(obs["n_sel"], total)
-        return ("greedy", (obs["hist_sum_ud"] / n) / hyper - bonus,
-                (obs["hist_sum_ul"] / n) / hyper - bonus)
+        return ("greedy", fdiv(obs["hist_sum_ud"] / n, hyper) - bonus,
+                fdiv(obs["hist_sum_ul"] / n, hyper) - bonus)
     raise ValueError(f"unknown policy {policy!r}; have {POLICY_NAMES}")
 
 
@@ -490,10 +523,8 @@ def round_via_mask(state, cand_mask_, t_ud, t_ul, rand, hyper, *,
     select + schedule + observe).  Returns ``(new_state, sel [G, S],
     round_time [G])`` — plus ``flags`` [G, S] with the failure layer on
     (``deadline`` set)."""
-    kind, a, b = policy_scores(policy, state_obs(state), state.total,
-                               state.disc_total, t_ud, t_ul, rand, hyper)
-    sel = (top_slots(a, cand_mask_, s_round) if kind == "score"
-           else greedy_slots(a, b, cand_mask_, s_round))
+    sel = _select_with_rand(policy, state, cand_mask_, t_ud, t_ul, rand,
+                            hyper, s_round)
     valid = sel >= 0
     safe = torch.where(valid, sel, 0).long()
     sud, sul = _gather(t_ud, safe), _gather(t_ul, safe)
@@ -569,3 +600,409 @@ def make_sampled_round_fn(policy: str, s_round: int, *,
             fault_u=fault_u)
 
     return round_fn
+
+
+# ---------------------------------------------------------------------------
+# The client-sharded (segmented) round
+# ---------------------------------------------------------------------------
+
+def make_segmented_round_fn(policy: str, s_round: int, *, n_shards: int,
+                            fluctuate: bool = True, fault=None,
+                            deadline: float | None = None):
+    """The client-sharded twin of :func:`make_sampled_round_fn`: one round
+    on a bandit state split into ``n_shards`` = P contiguous client blocks
+    (shard p owns clients [p*K/P, (p+1)*K/P); distributed/sharding.py):
+
+        round_fn(state, cand_idx, u2, rand, theta_mu, gamma_mu, n_samples,
+                 eta, model_bits, hyper, fault_u=None)
+            -> (state, sel [G, S], round_time [G][, flags [G, S]])
+
+    ``state``: the sharded [G*P, K/P] state (``sharding.shard_state``);
+    ``cand_idx``: [G, C] sorted global candidates, the same for every
+    shard; ``theta_mu``/``gamma_mu``: [G, P, K/P] mean blocks;
+    ``n_samples``: [P, K/P]; ``u2``/``rand``/``eta``/``fault_u`` as in
+    :func:`make_sampled_round_fn` (``rand`` the flat [G, K] stream).  The
+    JAX package runs one shard per device; here the P shards are a leading
+    axis of tensors on one device, crossing shards through
+    ``sharding.sum_shards`` (``psum``) and ``sharding.gather_shards``
+    (``all_gather``).  Selections, round times and state equal the flat
+    round's bitwise.
+
+    Each shard gathers the candidates it owns; the shard sum re-assembles
+    the exact [C] slice (the owner's value plus zeros), on which the
+    Eq. (8) draw runs.  "score" policies (:func:`policy_kind`) rank each
+    shard's own candidates with the local top-S (``ops.local_topk``, the
+    hand-written kernel on the card) and merge the P*S pairs
+    (``kernels/ref.segmented_topk_ref``); "greedy" policies run
+    Algorithm 1 on the assembled slice, whose T_inc depends on the running
+    schedule clock, so per-shard pruning would not be exact.  Each shard
+    observes only its own picks and credits the global valid count
+    (``observe(count_valid=)``); ``n_fail`` counts per shard.
+    """
+    from repro_torch.distributed import sharding
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.ref import (segmented_topk_ref,
+                                         truncnorm_times_ref)
+    check_policy(policy)
+    decay = policy_decay(policy)
+    fault = resolve_fault(fault, deadline)
+    kind = policy_kind(policy)
+    p = int(n_shards)
+
+    def round_fn(state, cand_idx, u2, rand, theta_mu, gamma_mu, n_samples,
+                 eta, model_bits, hyper, fault_u=None):
+        g, _, k_local = theta_mu.shape
+        k = k_local * p
+        off = torch.arange(p, device=cand_idx.device).view(1, p, 1) * k_local
+        cvalid = cand_idx < k                            # [G, C]
+        loc = cand_idx.long()[:, None, :] - off          # [G, P, C]
+        in_l = cvalid[:, None, :] & (loc >= 0) & (loc < k_local)
+        safe_l = torch.where(in_l, loc, 0)
+
+        def assemble(x):                                 # [G, P, C] -> [G, C]
+            return sharding.sum_shards(torch.where(in_l, x, 0), 1)
+
+        def local(x):                                    # [G, P, K/P] at C
+            return x.expand(g, p, k_local).gather(2, safe_l)
+
+        t_ud_c, t_ul_c = truncnorm_times_ref(
+            u2, assemble(local(theta_mu)), assemble(local(gamma_mu)),
+            assemble(local(n_samples)), eta, model_bits, fluctuate=fluctuate)
+        rand_c = (rand.gather(1, torch.where(cvalid, cand_idx, 0).long())
+                  if policy == "random" else None)
+
+        rows = safe_l.reshape(g * p, -1)
+
+        def col(name):                                   # [G*P, C] own stats
+            if name.startswith("hist_sum_"):
+                h = getattr(state, "hist_" + name[len("hist_sum_"):])
+                return row_sum(h.gather(
+                    1, rows[..., None].expand(-1, -1, h.shape[2])))
+            return getattr(state, name).gather(1, rows)
+
+        obs_c = {name: col(name) for name in POLICY_STATS[policy]}
+        if kind == "greedy":
+            obs = {n: assemble(v.view(g, p, -1)) for n, v in obs_c.items()}
+            _, a, b = policy_scores(
+                policy, obs, state.total.view(g, p)[:, 0],
+                state.disc_total.view(g, p)[:, 0], t_ud_c, t_ul_c, rand_c,
+                hyper)
+            slots = greedy_slots(a, b, cvalid, s_round)
+        else:
+            # stats gathered at a foreign slot are another client's: masked
+            # out before the local ranking
+            _, a, _ = policy_scores(
+                policy, obs_c, state.total, state.disc_total, None, None,
+                None if rand_c is None else rand_c.repeat_interleave(p, 0),
+                hyper)
+            score = torch.where(in_l, a.view(g, p, -1), NEG_INF)
+            lvals, lslots = ops.local_topk(score, in_l, s_round)
+            slots = segmented_topk_ref(sharding.gather_shards(lvals),
+                                       sharding.gather_shards(lslots),
+                                       s_round)
+
+        ok = slots >= 0
+        safe_slot = torch.where(ok, slots, 0).long()
+        sel = torch.where(ok, cand_idx.gather(1, safe_slot), -1).to(
+            torch.int32)
+        valid = sel >= 0
+        sud, sul = t_ud_c.gather(1, safe_slot), t_ul_c.gather(1, safe_slot)
+        # each shard's view of the selection: foreign picks become -1
+        sel_p = sel.long()[:, None, :] - off
+        own = valid[:, None, :] & (sel_p >= 0) & (sel_p < k_local)
+        sel_l = torch.where(own, sel_p, -1).reshape(g * p, -1)
+
+        def rep(x):                                      # [G, ...] per shard
+            return x.repeat_interleave(p, 0)
+        n_valid = rep(valid.sum(1, dtype=torch.int32))
+        if deadline is None:
+            round_time, incs = schedule_gathered(valid, sud, sul)
+            state = observe(state, sel_l, rep(sud), rep(sul), rep(incs),
+                            decay=decay, count_valid=n_valid)
+            return state, sel, round_time
+        round_time, incs, finish = schedule_completions(valid, sud, sul)
+        obs_ud, obs_ul, obs_inc, fail, flags, round_time = censor_slots(
+            valid, sud, sul, incs, finish, round_time, fault_u, fault,
+            deadline)
+        state = observe(state, sel_l, rep(obs_ud), rep(obs_ul), rep(obs_inc),
+                        decay=decay, fail=rep(fail), count_valid=n_valid)
+        return state, sel, round_time, flags
+
+    return round_fn
+
+
+# ---------------------------------------------------------------------------
+# The index-based selection API (the JAX package's original public API)
+#   select_*_mask(state, cand_mask, rand, true_ud, true_ul, hyper, *,
+#                 s_round) -> [G, S] client indices, -1 padded
+# ---------------------------------------------------------------------------
+
+@functools.cache
+def _rev_index(k: int, device: torch.device) -> torch.Tensor:
+    return 0xFFFFFFFF - torch.arange(k, device=device)
+
+
+def rank_keys(x: torch.Tensor, nonnegative: bool = False) -> torch.Tensor:
+    """Unique int64 keys of the entries of each row of float32 ``x`` that
+    order them as ``lax.top_k`` does: by value, and the lower index first
+    among equal values.  The high half holds the float's bits mapped to an
+    order-preserving int32 (negative floats flip their magnitude bits, so
+    -0.0 ranks just below +0.0 and NaN above +inf), the low half the
+    reversed index.  ``nonnegative``: the caller knows ``x >= 0`` (the
+    draws' uniforms), whose bits already order them, and saves three
+    passes."""
+    b = x.contiguous().view(torch.int32)
+    if not nonnegative:
+        b = b ^ ((b >> 31) & 0x7FFFFFFF)
+    return torch.add(_rev_index(x.shape[-1], x.device), b, alpha=1 << 32)
+
+
+def top_k(x: torch.Tensor, n: int) -> torch.Tensor:
+    """Indices of the ``n`` largest entries of each row of float32 ``x``,
+    value descending, ties to the lower index — the indices of
+    ``lax.top_k``.  ``torch.topk`` leaves the order of equal values
+    unspecified, so it ranks :func:`rank_keys` instead."""
+    return rank_keys(x).topk(n, dim=-1).indices
+
+
+def candidate_mask(k: int, candidates: torch.Tensor) -> torch.Tensor:
+    """[G, K] bool mask from [G, C] candidate indices (>= K dropped)."""
+    return cand_mask(candidates, k)
+
+
+def _top_score(score: torch.Tensor, mask: torch.Tensor,
+               s_round: int) -> torch.Tensor:
+    """Top-S by score over the candidate set, -1 padded."""
+    idx = top_k(torch.where(mask, score, NEG_INF), s_round)
+    return torch.where(mask.gather(1, idx), idx, -1).to(torch.int32)
+
+
+def ucb_bonus(state: BanditState) -> torch.Tensor:
+    """[G, K] UCB exploration bonus of every arm."""
+    return ucb_bonus_arrays(state.n_sel, state.total)
+
+
+def _naive_scores(state: BanditState, alpha,
+                  use_kernel: bool = True) -> torch.Tensor:
+    """Eq. (4) score of every arm.  A CUDA state scores through the
+    hand-written kernel (``ops.ucb_scores``, alpha as a float); a CPU state
+    through its plain version, or by the policy formula when
+    ``use_kernel`` is False."""
+    if use_kernel or state.n_sel.is_cuda:
+        from repro_torch.kernels import ops
+        return ops.ucb_scores(state.sum_tinc, state.n_sel, state.total,
+                              alpha=float(alpha))
+    return fdiv(-_mean(state.sum_tinc, state.n_sel), alpha) + ucb_bonus(state)
+
+
+def _uniforms(rand, like: torch.Tensor) -> torch.Tensor:
+    """The random policy's uniforms: ``rand`` itself, or drawn in ``like``'s
+    shape from ``rand`` as a ``torch.Generator``."""
+    if isinstance(rand, torch.Generator):
+        return torch.rand(like.shape, generator=rand, device=like.device)
+    return rand
+
+
+def _select_with_rand(policy, state, mask, true_ud, true_ul, rand, hyper,
+                      s_round: int) -> torch.Tensor:
+    """Selection over the [G, K] candidate ``mask`` from full-[G, K]
+    :func:`policy_scores` (the random policy's uniforms ``rand`` given)."""
+    kind, a, b = policy_scores(policy, state_obs(state), state.total,
+                               state.disc_total, true_ud, true_ul, rand,
+                               hyper)
+    if kind == "score":
+        return _top_score(a, mask, s_round)
+    return greedy_slots(a, b, mask, s_round)
+
+
+def _select_via_scores(policy, state, mask, rand, true_ud, true_ul, hyper,
+                       s_round: int) -> torch.Tensor:
+    rand = _uniforms(rand, mask) if policy == "random" else None
+    return _select_with_rand(policy, state, mask, true_ud, true_ul, rand,
+                             hyper, s_round)
+
+
+def _mask_fn(policy: str, doc: str):
+    def select(state, cand_mask_, rand, true_ud, true_ul, hyper, *,
+               s_round: int) -> torch.Tensor:
+        return _select_via_scores(policy, state, cand_mask_, rand, true_ud,
+                                  true_ul, hyper, s_round)
+    select.__name__ = select.__qualname__ = f"select_{policy}_mask"
+    select.__doc__ = doc
+    return select
+
+
+select_fedcs_mask = _mask_fn(
+    "fedcs", "FedCS: the last observed latency is the estimate.")
+select_extended_fedcs_mask = _mask_fn(
+    "extended_fedcs", "Extended FedCS: mean of the last W observations.")
+select_elementwise_mask = _mask_fn(
+    "elementwise_ucb", "Element-wise MAB-CS (Eqs. 5-7); ``hyper`` is beta.")
+select_random_mask = _mask_fn(
+    "random", "Uniform S-subset of the candidates; ``rand``: [G, K] "
+    "uniforms or a ``torch.Generator``.")
+select_oracle_mask = _mask_fn(
+    "oracle", "Greedy on this round's true times (upper bound).")
+select_discounted_mask = _mask_fn(
+    "discounted_ucb", "Discounted element-wise MAB-CS; ``hyper`` is beta.")
+select_sliding_mask = _mask_fn(
+    "sliding_ucb", "Sliding-window element-wise MAB-CS; ``hyper`` is beta.")
+
+
+def select_naive_mask(state, cand_mask_, rand, true_ud, true_ul, hyper, *,
+                      s_round: int) -> torch.Tensor:
+    """Naive MAB-CS (Eq. 4): UCB-score top-S over the candidates; ``hyper``
+    is alpha.  A CUDA state, or a Python-number alpha, scores every arm
+    through ``ops.ucb_scores`` (the hand-written kernel on the card); a
+    tensor alpha on a CPU state takes the policy formula."""
+    if state.n_sel.is_cuda or isinstance(hyper, (int, float)):
+        return _top_score(_naive_scores(state, hyper), cand_mask_, s_round)
+    return _select_via_scores("naive_ucb", state, cand_mask_, rand, true_ud,
+                              true_ul, hyper, s_round)
+
+
+SELECT_FNS = {
+    "fedcs": select_fedcs_mask,
+    "extended_fedcs": select_extended_fedcs_mask,
+    "naive_ucb": select_naive_mask,
+    "elementwise_ucb": select_elementwise_mask,
+    "random": select_random_mask,
+    "oracle": select_oracle_mask,
+    "discounted_ucb": select_discounted_mask,
+    "sliding_ucb": select_sliding_mask,
+}
+
+
+def make_select_fn(policy: str, s_round: int):
+    """The mask-based select function of ``policy`` with the cohort size
+    bound; raises on unknown names."""
+    check_policy(policy)
+    return functools.partial(SELECT_FNS[policy], s_round=s_round)
+
+
+def select_elementwise(state: BanditState, candidates: torch.Tensor,
+                       s_round: int, beta: float = DEFAULT_BETA):
+    """Element-wise MAB-CS over [G, C] candidate indices; [G, S], -1
+    padded."""
+    mask = candidate_mask(state.n_sel.shape[1], candidates)
+    return select_elementwise_mask(state, mask, None, None, None, beta,
+                                   s_round=s_round)
+
+
+def select_naive(state: BanditState, candidates: torch.Tensor, s_round: int,
+                 alpha: float = DEFAULT_ALPHA,
+                 use_kernel: bool = True) -> torch.Tensor:
+    """Naive MAB-CS (Eq. 4) over [G, C] candidate indices; [G, S], -1
+    padded.  A CUDA state scores every arm through the hand-written kernel
+    (``ops.ucb_scores``); on a CPU state ``use_kernel`` picks its plain
+    version (True) or the policy formula (False)."""
+    mask = candidate_mask(state.n_sel.shape[1], candidates)
+    return _top_score(_naive_scores(state, alpha, use_kernel), mask, s_round)
+
+
+def select_fedcs(state: BanditState, candidates: torch.Tensor,
+                 s_round: int) -> torch.Tensor:
+    """FedCS over [G, C] candidate indices; [G, S], -1 padded."""
+    mask = candidate_mask(state.n_sel.shape[1], candidates)
+    return select_fedcs_mask(state, mask, None, None, None, 0.0,
+                             s_round=s_round)
+
+
+def select_extended_fedcs(state: BanditState, candidates: torch.Tensor,
+                          s_round: int) -> torch.Tensor:
+    """Extended FedCS over [G, C] candidate indices; [G, S], -1 padded."""
+    mask = candidate_mask(state.n_sel.shape[1], candidates)
+    return select_extended_fedcs_mask(state, mask, None, None, None, 0.0,
+                                      s_round=s_round)
+
+
+def select_random(state: BanditState, candidates: torch.Tensor,
+                  s_round: int, rand) -> torch.Tensor:
+    """Uniform S-subset of [G, C] candidate indices; ``rand``: [G, K]
+    uniforms or a ``torch.Generator``.  [G, S], -1 padded."""
+    mask = candidate_mask(state.n_sel.shape[1], candidates)
+    return select_random_mask(state, mask, rand, None, None, 0.0,
+                              s_round=s_round)
+
+
+def select_oracle(state: BanditState, candidates: torch.Tensor, s_round: int,
+                  true_ud: torch.Tensor, true_ul: torch.Tensor):
+    """Greedy on this round's true [G, K] times over [G, C] candidate
+    indices; [G, S], -1 padded."""
+    mask = candidate_mask(state.n_sel.shape[1], candidates)
+    return select_oracle_mask(state, mask, None, true_ud, true_ul, 0.0,
+                              s_round=s_round)
+
+
+# ---------------------------------------------------------------------------
+# Hierarchical two-level selection: score cells from aggregated per-cell
+# statistics, then poll candidates only inside the selected cells.  Cell c
+# owns clients {c, c + n_cells, ...} (the scenario's round-robin binning).
+# ---------------------------------------------------------------------------
+
+def cell_scores(cell_n: torch.Tensor, cell_tinc: torch.Tensor,
+                alpha: float = DEFAULT_ALPHA) -> torch.Tensor:
+    """Naive-UCB (Eq. 4) score of each cell from [G, n_cells] float32
+    aggregates: mean observed T_inc against the exploration bonus, BIG for
+    never-sampled cells."""
+    nf = cell_n.clamp_min(1.0)
+    total = cell_n.sum(-1, keepdim=True).clamp_min(2.0)
+    bonus = torch.sqrt(torch.log(total) / (2.0 * nf))
+    score = -fdiv(cell_tinc / nf, alpha) + bonus
+    return torch.where(cell_n < 0.5, BIG, score)
+
+
+def select_slots_all(score: torch.Tensor, s: int) -> torch.Tensor:
+    """:func:`top_slots` with every slot eligible: with nothing masked, its
+    S argmax steps take the order of :func:`top_k` (value descending, the
+    lowest index first on ties), which one sort gives."""
+    return top_k(score, s).to(torch.int32)
+
+
+def select_cells(cell_n: torch.Tensor, cell_tinc: torch.Tensor,
+                 s_cells: int, alpha: float = DEFAULT_ALPHA) -> torch.Tensor:
+    """Top-``s_cells`` cells by :func:`cell_scores`, never-sampled cells
+    first, ties to the lowest cell id: [G, s_cells] int32."""
+    return select_slots_all(cell_scores(cell_n, cell_tinc, alpha), s_cells)
+
+
+def hier_cand_idx(u: torch.Tensor, cells_sel: torch.Tensor, k: int,
+                  n_cells: int, n_req_cell: int) -> torch.Tensor:
+    """Per-cell Resource Request of the hierarchical round.
+
+    ``u``: [G, s_cells, m] uniforms, one row per selected cell
+    (m = ceil(K / n_cells)); ``cells_sel``: [G, s_cells] cell ids.  Each
+    selected cell polls the ``n_req_cell`` members with the largest
+    uniforms, ties to the lower index; members past K (short cells) rank
+    last and pad with K.  Returns the [G, s_cells * n_req_cell] sorted
+    int32 candidates."""
+    g, s_cells, m = u.shape
+    if m != -(-k // n_cells):
+        raise ValueError(f"u has {m} uniforms per cell; K={k} over "
+                         f"{n_cells} cells needs {-(-k // n_cells)}")
+    gidx = (torch.arange(m, device=u.device) * n_cells
+            + cells_sel.long()[..., None])
+    uu = torch.where(gidx < k, u, -1.0)
+    pos = top_k(uu, n_req_cell)
+    cands = torch.where(uu.gather(-1, pos) >= 0.0, gidx.gather(-1, pos), k)
+    return cands.reshape(g, -1).sort(-1).values.to(torch.int32)
+
+
+def update_cell_stats(cell_n: torch.Tensor, cell_tinc: torch.Tensor,
+                      sel: torch.Tensor, pre_tinc: torch.Tensor,
+                      post_tinc: torch.Tensor, cell_id: torch.Tensor,
+                      n_cells: int):
+    """Fold one round's observed T_inc into the [G, n_cells] aggregates:
+    each valid pick of ``sel`` [G, S] adds 1 to its cell's count and its
+    ``sum_tinc`` increment (``post_tinc - pre_tinc``, [G, K]) to its
+    cell's sum; -1 slots drop."""
+    v = sel >= 0
+    safe = torch.where(v, sel, 0).long()
+    d = torch.where(v, post_tinc.gather(1, safe) - pre_tinc.gather(1, safe),
+                    0.0)
+    drop = torch.where(v, cell_id[safe], n_cells)
+
+    def add(x, val):
+        x = torch.cat([x, x.new_zeros(x.shape[0], 1)], 1)
+        return x.scatter_add(1, drop, val)[:, :n_cells]
+    return add(cell_n, v.float()), add(cell_tinc, d)

@@ -523,9 +523,9 @@ def accuracy_sweep(scenario: Scenario | str = "paper-baseline",
         raise NotImplementedError("devices: multi-device accuracy sweeps are "
                                   "not ported yet (ROADMAP Queue 1 item 8)")
     if shard != "grid":
-        raise NotImplementedError("shard='clients': client-sharded rounds "
-                                  "are not ported yet (ROADMAP Queue 1 "
-                                  "item 8)")
+        raise NotImplementedError("shard='clients': the client-sharded "
+                                  "accuracy sweep is not ported yet (ROADMAP "
+                                  "Queue 1 item 8)")
     if chunk_rounds is not None:
         raise NotImplementedError("chunk_rounds: the port draws every round "
                                   "inside its loop; chunked presampling is "

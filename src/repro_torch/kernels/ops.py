@@ -1,11 +1,12 @@
 """Routing of the port's kernels — the port of ``repro.kernels.ops``
-(``bandit_round``, ``bandit_round_sampled``, ``fedavg_combine``).
+(``bandit_round``, ``bandit_round_sampled``, ``local_topk``,
+``ucb_scores``, ``fedavg_combine``).
 
 A CUDA tensor goes to the hand-written kernel (kernels/bandit_round.py,
-kernels/fedavg.py); a CPU tensor goes to the plain version
-(kernels/ref.py).  The bandit round's kernel updates the state in place and
-its plain version returns a new one: callers use the returned state and
-treat the one passed in as consumed.
+kernels/topk_slots.py, kernels/ucb_score.py, kernels/fedavg.py); a CPU
+tensor goes to the plain version (kernels/ref.py).  The bandit round's
+kernel updates the state in place and its plain version returns a new one:
+callers use the returned state and treat the one passed in as consumed.
 """
 
 from __future__ import annotations
@@ -13,6 +14,8 @@ from __future__ import annotations
 from repro_torch.kernels import bandit_round as _cuda
 from repro_torch.kernels import fedavg as _fedavg
 from repro_torch.kernels import ref as _ref
+from repro_torch.kernels import topk_slots as _topk
+from repro_torch.kernels import ucb_score as _ucb
 
 
 def bandit_round(state, cand_idx, t_ud, t_ul, rand, hyper, *, policy: str,
@@ -42,6 +45,21 @@ def bandit_round_sampled(state, cand_idx, u2, rand, theta_mu, gamma_mu,
               model_bits, hyper, policy=policy, s_round=s_round, decay=decay,
               fluctuate=fluctuate, fault=fault, deadline=deadline,
               fault_u=fault_u)
+
+
+def local_topk(score, valid, s_round: int):
+    """Local top-S of each row of [..., C] scores over the ``valid``
+    entries (the segmented round's per-shard ranking): ``(vals [..., S]
+    f32, slots [..., S] int32)``, exhausted steps (-inf, -1)."""
+    fn = _topk.local_topk_cuda if score.is_cuda else _ref.local_topk_ref
+    return fn(score, valid, s_round)
+
+
+def ucb_scores(sums, n_sel, total, alpha: float = 1000.0):
+    """Naive-UCB score of every arm: [G, K] sums and counts, [G] totals ->
+    [G, K] float32."""
+    fn = _ucb.ucb_scores_cuda if sums.is_cuda else _ref.ucb_scores_ref
+    return fn(sums, n_sel, total, alpha)
 
 
 def fedavg_combine(stacked, weights):

@@ -1,10 +1,12 @@
 """Plain PyTorch versions of the port's kernels — the port of
-``repro.kernels.ref`` (``truncnorm_times_ref``, ``bandit_round_ref``,
+``repro.kernels.ref`` (``ucb_scores_ref``, ``truncnorm_times_ref``,
+``bandit_round_ref``, ``local_topk_ref``, ``segmented_topk_ref``,
 ``fedavg_ref``).
 
 They are the CPU path of ``kernels/ops.py`` and the references that the
-CUDA kernels (kernels/csrc/bandit_round.cu, kernels/csrc/fedavg.cu) are held
-against on the card: the same formulation, step by step.
+CUDA kernels (kernels/csrc/*.cu) are held against on the card: the same
+formulation, step by step.  ``segmented_topk_ref`` has no kernel: the JAX
+package computes the cross-shard merge outside any Pallas kernel too.
 """
 
 from __future__ import annotations
@@ -13,6 +15,24 @@ import torch
 
 from repro_torch.core import bandit
 from repro_torch.sim.truncnorm import truncnorm_transform
+
+
+def ucb_scores_ref(sums: torch.Tensor, n_sel: torch.Tensor,
+                   total: torch.Tensor, alpha: float = 1000.0) -> torch.Tensor:
+    """Naive-UCB (Eq. 4) score of every arm: ``sums``/``n_sel`` [G, K],
+    ``total`` [G] -> [G, K] float32
+
+        -(sums / max(n, 1)) / alpha + sqrt(log max(total, 2) / (2 max(n, 1)))
+
+    and BIG where n = 0 (explore first).  Each operation rounds to float32
+    on its own; the CUDA kernel (kernels/csrc/ucb_score.cu) rounds at the
+    same places."""
+    nf = n_sel.float().clamp_min(1.0)
+    mean = sums.float() / nf
+    log_total = torch.log(total.float().clamp_min(2.0))[:, None]
+    bonus = torch.sqrt(log_total / (2.0 * nf))
+    score = -bandit.fdiv(mean, alpha) + bonus
+    return torch.where(n_sel == 0, bandit.BIG, score)
 
 
 def truncnorm_times_ref(u2, mu_theta, mu_gamma, n_samples, eta, model_bits,
@@ -33,7 +53,7 @@ def truncnorm_times_ref(u2, mu_theta, mu_gamma, n_samples, eta, model_bits,
     else:
         theta, gamma = mu_theta, mu_gamma
     return (n_samples / gamma.clamp_min(1e-9),
-            model_bits / theta.clamp_min(1e-9))
+            bandit.fdiv(model_bits, theta.clamp_min(1e-9)))
 
 
 def sample_times_candidates(u2, cand_idx, n_samples, theta_mu, gamma_mu,
@@ -132,6 +152,55 @@ def bandit_round_sampled_ref(state, cand_idx, u2, rand, theta_mu, gamma_mu,
         state, cand_idx, t_ud_c, t_ul_c, rand_c, hyper, policy=policy,
         s_round=s_round, decay=decay, sliced=True, fault=fault,
         deadline=deadline, fault_u=fault_u)
+
+
+def local_topk_ref(score: torch.Tensor, valid: torch.Tensor,
+                   s_round: int):
+    """Local top-S of each row of [..., C] ``score`` over the ``valid``
+    entries: ``(vals [..., S] f32, slots [..., S] int32)`` in the order of
+    :func:`~repro_torch.core.bandit.top_slots` — S masked argmax steps,
+    value descending, lowest slot first on ties; an exhausted step gives
+    (-inf, -1).  As there, a step whose first maximum of
+    ``where(valid, score, -inf)`` falls on an invalid slot is exhausted,
+    so a row whose valid scores are all -inf can end early.  The plain
+    version of the ``topk_slots`` kernel (kernels/csrc/topk_slots.cu)."""
+    lead = score.shape[:-1]
+    flat = score.reshape(-1, score.shape[-1]).float()
+    slots = bandit.top_slots(flat, valid.reshape(flat.shape), s_round)
+    ok = slots >= 0
+    vals = torch.where(ok, flat.gather(1, torch.where(ok, slots, 0).long()),
+                       bandit.NEG_INF)
+    return vals.reshape(*lead, s_round), slots.reshape(*lead, s_round)
+
+
+def segmented_topk_ref(vals: torch.Tensor, slots: torch.Tensor,
+                       s_round: int) -> torch.Tensor:
+    """Merge P shards' local top-S into the global top-``s_round``:
+    ``vals``/``slots`` [..., P, S] (slots unique candidate positions,
+    -1 = exhausted) -> [..., s_round] int32 slot indices, -1 padded.
+
+    Replays the flat masked-argmax order — value descending, lowest slot
+    on exact ties — so the merge equals flat ``top_slots`` over all
+    candidates: a flat pick has fewer than S better candidates in its own
+    shard, hence sits inside that shard's local top-S."""
+    lead = vals.shape[:-2]
+    v = vals.reshape(-1, vals.shape[-2] * vals.shape[-1])
+    s = slots.reshape(v.shape).to(torch.int32)
+    valid = s >= 0
+    imax = torch.iinfo(torch.int32).max
+    slx = torch.where(valid, s, imax)
+    live = valid.clone()
+    out = torch.full((v.shape[0], s_round), -1, dtype=torch.int32,
+                     device=v.device)
+    for i in range(s_round):
+        vv = torch.where(live, v, bandit.NEG_INF)
+        m = vv.amax(1, keepdim=True)
+        cand = live & (vv == m)
+        pos = torch.where(cand, slx, imax).argmin(1, keepdim=True)
+        ok = cand.gather(1, pos)
+        out[:, i] = torch.where(ok, s.gather(1, pos), -1)[:, 0]
+        live = live.scatter(1, pos, live.gather(1, pos) & ~ok)
+    return out.reshape(*lead, s_round)
 
 
 def fedavg_combine_ref(stacked: torch.Tensor,

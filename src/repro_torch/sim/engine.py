@@ -1,5 +1,6 @@
 """The protocol sweep on one device — the PyTorch port of
-``repro.sim.engine_jax`` (single device, flat selection).
+``repro.sim.engine_jax``: flat, client-sharded (segmented) and
+hierarchical (cell) selection.
 
 ``sweep`` runs the paper's experiment: a grid of policies x eta x seeds
 through R protocol rounds, each round doing Resource Request -> Eq. (8)
@@ -31,6 +32,13 @@ K >= FAST_SAMPLING_MIN_K) polls candidates by a top-k of uniforms and draws
 Eq. (8) times only for the [C] candidates, inside the fused round.  On a
 CUDA device every fused round is one launch of the hand-written kernel
 (kernels/bandit_round.py).
+
+Two scale-out modes sit on the streamed path.  ``shard="clients"`` splits
+the bandit state into P client blocks held as a leading [P] axis and runs
+the segmented round, whose score policies rank each block's candidates with
+the hand-written local top-S kernel (kernels/topk_slots.py).
+``hierarchy="cells"`` selects cells first and polls candidates only inside
+them, then runs the ordinary fused round.
 """
 
 from __future__ import annotations
@@ -43,6 +51,7 @@ import numpy as np
 import torch
 
 from repro_torch.core import bandit
+from repro_torch.distributed import sharding
 from repro_torch.kernels.ref import sample_times_candidates
 from repro_torch.sim import network
 from repro_torch.sim.resources import PAPER_MODEL_BITS
@@ -116,7 +125,7 @@ def sample_times(n_samples, theta_mu, gamma_mu, eta, model_bits, u_theta,
     else:
         theta, gamma = theta_mu, gamma_mu
     return (n_samples / gamma.clamp_min(1e-9),
-            model_bits / theta.clamp_min(1e-9))
+            bandit.fdiv(model_bits, theta.clamp_min(1e-9)))
 
 
 def throughput_bps(dist_m: torch.Tensor) -> torch.Tensor:
@@ -183,12 +192,16 @@ def churn_step(u: torch.Tensor, mean_theta: torch.Tensor,
 class RoundDraws:
     """One round's random inputs for the [G] grid."""
 
-    cand: torch.Tensor                  # [G, C] int32 sorted candidates
+    cand: torch.Tensor | None           # [G, C] int32 sorted candidates
     u_time: torch.Tensor | None         # [G, 2, K] legacy | [G, 2, C] fast
     rand: torch.Tensor | None = None    # [G, K] random policy's uniforms
     fault_u: torch.Tensor | None = None  # [G, 3, S] crash/churn/corrupt
     cong: torch.Tensor | None = None    # [G, cells] standard normals
     churn: torch.Tensor | None = None   # [G, 4] churn uniforms
+    # hierarchical rounds: per selected cell's uniforms [G, s_cells, m]
+    # (m = ceil(K / n_cells)), from which the round polls its candidates
+    # (cand is None then)
+    cell_u: torch.Tensor | None = None
 
 
 def make_generators(seeds, device) -> dict[str, torch.Generator]:
@@ -204,25 +217,45 @@ def make_generators(seeds, device) -> dict[str, torch.Generator]:
     return gens
 
 
+def topk_lowest(u: torch.Tensor, n: int) -> torch.Tensor:
+    """Indices of the ``n`` largest entries of each row of the non-negative
+    float32 ``u`` (uniforms), ties going to the lower index (the set
+    ``lax.top_k`` takes), sorted ascending.  ``torch.topk`` alone leaves
+    the order of ties unspecified, and float32 uniforms tie at rank ``n``
+    often enough at large K to decide membership; the unique keys of
+    ``bandit.rank_keys`` do not tie."""
+    keys = bandit.rank_keys(u, nonnegative=True)
+    return keys.topk(n, dim=-1, sorted=False).indices.sort(dim=-1).values
+
+
 def draw_round_inputs(gens: dict[str, torch.Generator], *, n_seeds: int,
                       n_etas: int, k: int, n_req: int, s_round: int,
                       fast: bool, fluctuate: bool, policy: str,
-                      scen: Scenario, fault) -> RoundDraws:
+                      scen: Scenario, fault,
+                      cells: tuple[int, int] | None = None) -> RoundDraws:
     """Draw one round's inputs for every seed and repeat them over the eta
     axis.  Candidates: a sorted permutation prefix (legacy path) or the
     sorted top-``n_req`` of K uniforms (streamed path) — both a uniform
-    random ``n_req``-subset."""
+    random ``n_req``-subset.  With ``cells`` = (s_cells, m) the round is
+    hierarchical: instead of candidates it draws ``cell_u``, m uniforms for
+    each of the s_cells cells the round will select (``n_req`` is then the
+    round's candidate count)."""
     device = gens["cand"].device
 
     def rnd(name, *shape):
         return torch.rand((n_seeds, *shape), generator=gens[name],
                           device=device)
 
-    u = rnd("cand", k)
-    cand = (u.topk(n_req, dim=1).indices if fast
-            else u.argsort(dim=1)[:, :n_req])
+    cand = cell_u = None
+    if cells is not None:
+        cell_u = rnd("cand", *cells)
+    else:
+        u = rnd("cand", k)
+        cand = (topk_lowest(u, n_req) if fast else
+                u.argsort(dim=1)[:, :n_req].sort(dim=1).values).to(
+                    torch.int32)
     d = RoundDraws(
-        cand=cand.sort(dim=1).values.to(torch.int32),
+        cand=cand, cell_u=cell_u,
         u_time=rnd("time", 2, n_req if fast else k) if fluctuate else None,
         rand=rnd("pol", k) if policy == "random" else None,
         fault_u=rnd("fault", 3, s_round) if fault is not None else None,
@@ -254,40 +287,84 @@ class RoundRunner:
     picks the streamed path, where ``u_time`` holds candidate-slice
     uniforms.  ``deadline`` switches on the failure layer, the scenario's
     FaultModel giving the fault probabilities.
+
+    ``shards`` = P (streamed and fused only) runs the client-sharded
+    segmented round (``bandit.make_segmented_round_fn``) on a state split
+    into P client blocks.  ``cells`` = (s_cells, n_req_cell) (streamed
+    only) runs the hierarchical rounds: each round first selects
+    ``s_cells`` cells of the scenario's ``congestion_cells`` from the cell
+    aggregates, polls ``n_req_cell`` candidates in each from the draws'
+    ``cell_u`` and afterwards folds the observed T_inc into the aggregates.
     """
 
     def __init__(self, env: EnvArrays, eta: torch.Tensor, *, policy: str,
                  scen: Scenario, s_round: int, hyper: float,
                  model_bits: float, fluctuate: bool = True,
                  fast: bool = False, fused: bool = True,
-                 deadline: float | None = None):
+                 deadline: float | None = None, shards: int | None = None,
+                 cells: tuple[int, int] | None = None):
         g, k = eta.shape[0], env.mean_theta.shape[0]
         self.env, self.eta, self.scen = env, eta, scen
         self.policy, self.s_round, self.hyper = policy, s_round, hyper
         self.model_bits, self.fluctuate = model_bits, fluctuate
         self.fast, self.fused, self.deadline = fast, fused, deadline
+        self.shards, self.cells = shards, cells
+        if (shards or cells) and not fast:
+            raise ValueError("client-sharded and hierarchical rounds run on "
+                             "the streamed-sampling path (fast=True)")
+        if shards and not fused:
+            raise ValueError("client-sharded rounds are fused rounds")
         self.fault = bandit.resolve_fault(scen.fault, deadline)
         self.decay = bandit.policy_decay(policy)
         self.state = bandit.BanditState.create(g, k,
                                                device=env.mean_theta.device)
         self.m_theta = env.mean_theta.expand(g, k).contiguous()
         self.m_gamma = env.mean_gamma.expand(g, k).contiguous()
-        if fused and fast:
+        if shards:
+            self.state = sharding.shard_state(self.state, shards)
+            self._fn = bandit.make_segmented_round_fn(
+                policy, s_round, n_shards=shards, fluctuate=fluctuate,
+                fault=self.fault, deadline=deadline)
+        elif fused and fast:
             self._fn = bandit.make_sampled_round_fn(
                 policy, s_round, fluctuate=fluctuate, fault=self.fault,
                 deadline=deadline)
         elif fused:
             self._fn = bandit.make_round_fn(policy, s_round, fault=self.fault,
                                             deadline=deadline)
+        if cells:
+            self.n_cells = int(scen.congestion_cells)
+            z = torch.zeros((g, self.n_cells), device=env.mean_theta.device)
+            self.cell_n, self.cell_tinc = z, z.clone()
+
+    def flat_state(self) -> bandit.BanditState:
+        """The bandit state in the flat [G, K] layout."""
+        if self.shards:
+            return sharding.unshard_state(self.state, self.shards)
+        return self.state
 
     def step(self, rnd: int, d: RoundDraws):
         """Round ``rnd`` (1-based) on the draws ``d``.  Returns ``(sel [G, S],
         round_time [G], flags [G, S] or None)``."""
         env, eta, k = self.env, self.eta, self.m_theta.shape[1]
+        if self.cells:
+            s_cells, n_req_cell = self.cells
+            cells_sel = bandit.select_cells(self.cell_n, self.cell_tinc,
+                                            s_cells)
+            d = dataclasses.replace(d, cand=bandit.hier_cand_idx(
+                d.cell_u, cells_sel, k, self.n_cells, n_req_cell))
+            pre_tinc = self.state.sum_tinc.clone()   # the kernel updates it
         mult = scenario_thr_mult(self.scen, env.cell_id, d.cong, rnd)
         mu_t = self.m_theta if mult is None else self.m_theta * mult
         m_gamma, bits = self.m_gamma, self.model_bits
-        if self.fast and self.fused:
+        if self.shards:
+            p = self.shards
+            out = self._fn(self.state, d.cand, d.u_time, d.rand,
+                           sharding.shard_leading(mu_t, p, 1),
+                           sharding.shard_leading(m_gamma, p, 1),
+                           sharding.shard_leading(env.n_samples, p, 0), eta,
+                           bits, self.hyper, fault_u=d.fault_u)
+        elif self.fast and self.fused:
             out = self._fn(self.state, d.cand, d.u_time, d.rand, mu_t,
                            m_gamma, env.n_samples, eta, bits, self.hyper,
                            fault_u=d.fault_u)
@@ -312,6 +389,10 @@ class RoundRunner:
                 policy=self.policy, s_round=self.s_round, decay=self.decay,
                 fault=self.fault, deadline=self.deadline, fault_u=d.fault_u)
         self.state = out[0]
+        if self.cells:
+            self.cell_n, self.cell_tinc = bandit.update_cell_stats(
+                self.cell_n, self.cell_tinc, out[1], pre_tinc,
+                self.state.sum_tinc, env.cell_id, self.n_cells)
         if self.scen.churn_prob > 0.0:
             self.m_theta, self.m_gamma = churn_step(
                 d.churn, self.m_theta, m_gamma, self.scen.churn_prob)
@@ -323,17 +404,20 @@ def run_rounds(env: EnvArrays, eta: torch.Tensor,
                draws: Iterable[RoundDraws], *, policy: str, scen: Scenario,
                s_round: int, hyper: float, model_bits: float,
                fluctuate: bool = True, fast: bool = False,
-               fused: bool = True, deadline: float | None = None):
+               fused: bool = True, deadline: float | None = None,
+               shards: int | None = None,
+               cells: tuple[int, int] | None = None):
     """Run one round per element of ``draws`` for the [G] grid of ``eta``
     (arguments as :class:`RoundRunner`'s).
 
     Returns ``(round_times [G, R], flags [G, R, S] or None, state)``;
-    ``flags`` exist when the failure layer is on (``deadline`` set).
+    ``flags`` exist when the failure layer is on (``deadline`` set); the
+    state is in the flat [G, K] layout.
     """
     runner = RoundRunner(env, eta, policy=policy, scen=scen, s_round=s_round,
                          hyper=hyper, model_bits=model_bits,
                          fluctuate=fluctuate, fast=fast, fused=fused,
-                         deadline=deadline)
+                         deadline=deadline, shards=shards, cells=cells)
     rts, flags = [], []
     for rnd, d in enumerate(draws, start=1):
         _, rt, fl = runner.step(rnd, d)
@@ -341,7 +425,7 @@ def run_rounds(env: EnvArrays, eta: torch.Tensor,
         flags.append(fl)
     failure = deadline is not None
     return (torch.stack(rts, 1), torch.stack(flags, 1) if failure else None,
-            runner.state)
+            runner.flat_state())
 
 
 # ---------------------------------------------------------------------------
@@ -452,24 +536,52 @@ def sweep(scenario: Scenario | str = "paper-baseline",
     ``policies`` entries are names or (name, hyper) pairs; ``seeds`` is an
     int (=> range) or a sequence.  ``deadline`` (seconds) switches on the
     failure-aware layer and the result's ``flags``.  Every grid point of one
-    seed sees the same random draws, whatever its policy or eta.  The
-    multi-device and large-K knobs (``devices``, ``shard="clients"``,
-    ``chunk_rounds``, ``hierarchy="cells"``) are not ported yet and raise.
+    seed sees the same random draws, whatever its policy or eta.
+
+    ``shard="clients"`` with ``devices`` = P > 1 splits the K clients'
+    bandit state into P contiguous blocks and runs the client-sharded
+    segmented rounds (``bandit.make_segmented_round_fn``) when P divides K
+    and the round is streamed and fused; otherwise it runs the flat path,
+    which gives the same results.  In this port the P shards are P blocks
+    of one device's memory (a leading [P] axis); the draws are the flat
+    path's, so the results equal the flat sweep's bitwise.  On one card
+    this path is slower than the flat one at every K measured (PERF.md);
+    it is there for parity with the JAX package and as the layout that
+    placing the blocks on several cards will use (ROADMAP).
+
+    ``hierarchy="cells"`` runs the two-level selection on the streamed
+    path: each round scores the scenario's ``congestion_cells`` cells by a
+    naive-UCB bandit over their aggregated observed T_inc, selects
+    ``s_cells`` of them (default ~sqrt(cells)) and polls
+    ``ceil(n_req / s_cells)`` candidates (at most a cell's population) only
+    inside those.  A scenario with at most one cell runs the flat path.  It
+    does not compose with ``shard="clients"`` or ``fast_sampling=False``
+    (ValueError).
+
+    Not ported: ``devices`` > 1 with ``shard="grid"`` and the placement of
+    blocks on several cards (ROADMAP Queue 1 item 12), and
+    ``chunk_rounds`` (Queue 1 item 4); both raise NotImplementedError.
     """
-    if devices not in (None, 0, 1):
-        raise NotImplementedError("devices: multi-device sweeps are not "
-                                  "ported yet (ROADMAP Queue 1 item 8)")
-    if shard != "grid":
-        raise NotImplementedError("shard='clients': client-sharded rounds "
-                                  "are not ported yet (ROADMAP Queue 1 "
-                                  "item 8)")
+    if shard not in ("grid", "clients"):
+        raise ValueError(f"unknown shard mode {shard!r}")
+    if hierarchy not in ("flat", "cells"):
+        raise ValueError(f"unknown hierarchy mode {hierarchy!r}")
+    if devices in (None, 0, 1):
+        n_shards = None
+    elif isinstance(devices, int) and devices > 1:
+        n_shards = devices
+    else:
+        raise ValueError(f"devices must be None or a number of shards, got "
+                         f"{devices!r}")
+    if n_shards and shard == "grid":
+        raise NotImplementedError(
+            "devices > 1 with shard='grid': placing grid points on several "
+            "cards is not ported yet (ROADMAP Queue 1 item 12); "
+            "shard='clients' runs P client blocks on one card")
     if chunk_rounds is not None:
         raise NotImplementedError("chunk_rounds: the port draws every round "
                                   "inside its loop; chunked presampling is "
                                   "not ported (ROADMAP Queue 1 item 4)")
-    if hierarchy != "flat" or s_cells is not None:
-        raise NotImplementedError("hierarchy='cells' is not ported yet "
-                                  "(ROADMAP Queue 1 item 5)")
     device = resolve_device(device)
     scenario = get_scenario(scenario) if isinstance(scenario, str) else scenario
     if s_round > n_clients:
@@ -487,7 +599,32 @@ def sweep(scenario: Scenario | str = "paper-baseline",
     seeds = tuple(range(seeds)) if isinstance(seeds, int) else tuple(seeds)
     etas = tuple(float(e) for e in etas)
     n_req = math.ceil(n_clients * frac_request)
-    fast = resolve_fast_sampling(fast_sampling, n_clients)
+
+    cells = draw_cells = None
+    if hierarchy == "cells":
+        if shard == "clients":
+            raise ValueError(
+                "hierarchy='cells' does not compose with shard='clients': "
+                "pick one scaling axis")
+        if fast_sampling is False:
+            raise ValueError(
+                "hierarchy='cells' is built on the streamed candidate-sliced "
+                "path; fast_sampling=False has no hierarchical legacy stream")
+        n_cells = max(int(scenario.congestion_cells), 1)
+        if n_cells > 1:         # one cell is the flat selection
+            if s_cells is None:
+                s_cells = round(math.sqrt(n_cells))
+            s_cells = min(max(int(s_cells), 1), n_cells)
+            m = -(-n_clients // n_cells)    # largest cell's population
+            n_req_cell = min(max(1, -(-n_req // s_cells)), m)
+            cells, draw_cells = (s_cells, n_req_cell), (s_cells, m)
+            n_req = s_cells * n_req_cell
+    fast = cells is not None or resolve_fast_sampling(fast_sampling,
+                                                      n_clients)
+    shards = (n_shards if shard == "clients" and fast and fused
+              and cells is None
+              and sharding.even_shards(n_clients, n_shards) is not None
+              else None)
 
     env = scenario.build_env(n_clients, np.random.default_rng(env_seed))
     env_arrays = EnvArrays.from_scenario(scenario, env, device)
@@ -500,12 +637,13 @@ def sweep(scenario: Scenario | str = "paper-baseline",
         draws = (draw_round_inputs(
             gens, n_seeds=len(seeds), n_etas=len(etas), k=n_clients,
             n_req=n_req, s_round=s_round, fast=fast, fluctuate=fluctuate,
-            policy=name, scen=scenario, fault=fault)
+            policy=name, scen=scenario, fault=fault, cells=draw_cells)
             for _ in range(n_rounds))
         rts, flags, _ = run_rounds(
             env_arrays, g_eta, draws, policy=name, scen=scenario,
             s_round=s_round, hyper=hyper, model_bits=float(model_bits),
-            fluctuate=fluctuate, fast=fast, fused=fused, deadline=deadline)
+            fluctuate=fluctuate, fast=fast, fused=fused, deadline=deadline,
+            shards=shards, cells=cells)
         rts_all.append(rts)
         flags_all.append(flags)
     shape = (len(pol_names), len(etas), len(seeds), n_rounds)

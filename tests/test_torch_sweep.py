@@ -285,8 +285,7 @@ def test_sweep_churn_scenario_runs():
 
 def test_entry_points_refuse_what_is_not_ported():
     kw = dict(n_rounds=2, seeds=1, device="cpu")
-    for bad in (dict(devices=2), dict(shard="clients"),
-                dict(chunk_rounds=1), dict(hierarchy="cells")):
+    for bad in (dict(devices=2), dict(chunk_rounds=1)):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             engine.sweep(**kw, **bad)
     with pytest.raises(ValueError, match="deadline"):
