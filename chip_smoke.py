@@ -62,6 +62,19 @@ else.  Phases (every mismatch raises, so any failure exits non-zero):
      K=10^5 (10 of 100 cells, 1000 candidates each) beside phase 5's flat
      rate; paper-baseline (one cell, so the flat path) with
      hierarchy="cells" bitwise equal to the flat sweep.
+ 12. the LM slice: the attention kernel against its plain version at
+     smollm-135m's prefill shapes (B, S, KV, G, dh) = (4, 4096, 3, 3, 64)
+     (bf16 and f32) and (1, 32768, 3, 3, 64) bf16, causal, at qwen3-1.7b's
+     dh = 128 (1, 2048, 8, 2, 128) bf16 causal and full, and ragged (2,
+     1000, 1, 4, 64) f32 (f32 rtol 2e-5 / atol 1e-5, bf16 rtol 1e-2 /
+     atol 1e-4: one bf16 step of the output), timed beside its plain version,
+     scaled_dot_product_attention and its bound; reduced smollm-135m at
+     S = 1024 on the card against the CPU (f32 and bf16: prefill logits,
+     8 decode steps, the KV cache); ``launch/serve.py`` at smollm-135m's
+     full width (4 x 4096 prompt tokens, 32 greedy steps): prefill ms,
+     decode tok/s, peak memory, exactly 30 kernel launches, finite logits,
+     and a profile of one prefill; the diurnal multiplier card against CPU,
+     bitwise.
 
 Launch counts are zeroed before each sweep and read after it; each sweep
 must launch its kernels once per (policy, round) (the local top-S once per
@@ -106,8 +119,12 @@ KERNELS = {
     "ucb_score": dict(
         replaces="src/repro/kernels/ucb_score.py:39",
         source=CSRC + "ucb_score.cu"),
+    "flash_attention": dict(
+        replaces="src/repro/kernels/flash_attention.py:81",
+        source=CSRC + "flash_attention.cu"),
 }
-SOURCES = ("bandit_round", "fedavg", "topk_slots", "ucb_score")
+SOURCES = ("bandit_round", "fedavg", "topk_slots", "ucb_score",
+           "flash_attention")
 N_CNN = 4_583_146              # parameters of the paper CNN
 FEDAVG_CASES = [(1, 5, N_CNN), (1, 100, N_CNN), (2, 5, N_CNN), (1, 3, 1),
                 (1, 10, 8192 * 3 + 17)]
@@ -248,16 +265,21 @@ def launcher(sampled):
 def profiled_kernel_ms(launch, n: int,
                        kernel: str = "bandit_round_kernel") -> float | None:
     """Device time per launch of ``kernel`` by torch.profiler, or None when
-    the profiler records no device time."""
+    the profiler records no launch of it.  Averaged over the launches the
+    profiler recorded: on the card's machine it can drop some records
+    (seen with launches of milliseconds after earlier profiled phases)."""
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         for _ in range(n):
             launch()
         torch.cuda.synchronize()
-    total = sum(getattr(e, "self_device_time_total", 0)
-                for e in prof.key_averages() if kernel in e.key)
-    return total / n / 1e3 if total else None
+    hits = [e for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA
+            and kernel in e.key]
+    count = sum(e.count for e in hits)
+    total = sum(e.self_device_time_total for e in hits)
+    return total / count / 1e3 if count else None
 
 
 def bound(policy, g, k, c, s, sampled, failure):
@@ -301,12 +323,17 @@ def bound(policy, g, k, c, s, sampled, failure):
 # phases
 # ---------------------------------------------------------------------------
 
-def phase_device_and_build() -> None:
-    from repro_torch.kernels import _build
+def card_name_and_power() -> str:
+    """The card's name and power limit, as ``nvidia-smi`` prints them."""
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True, check=True)
-    log(smi.stdout.strip().splitlines()[0])
+    return smi.stdout.strip().splitlines()[0]
+
+
+def phase_device_and_build() -> None:
+    from repro_torch.kernels import _build
+    log(card_name_and_power())
     names = SOURCES
     cached = [n for n in names if _build.library_path(n).exists()]
     t0 = time.perf_counter()
@@ -650,8 +677,9 @@ def phase_fedavg_kernel(results: dict) -> None:
 
 
 def _wrappers():
-    from repro_torch.kernels import bandit_round, fedavg, topk_slots, ucb_score
-    return bandit_round, fedavg, topk_slots, ucb_score
+    from repro_torch.kernels import (bandit_round, fedavg, flash_attention,
+                                     topk_slots, ucb_score)
+    return bandit_round, fedavg, topk_slots, ucb_score, flash_attention
 
 
 def reset_counts() -> None:
@@ -1268,6 +1296,264 @@ def phase_hierarchy() -> None:
         "flat sweep bitwise (the routing: one cell runs the flat path)")
 
 
+# ---------------------------------------------------------------------------
+# phase 12: the LM slice (attention kernel, prefill and decode)
+# ---------------------------------------------------------------------------
+
+BF16_TC_OPS_PER_S = 989e12     # H100 SXM bf16 dense tensor-core rate
+# (B, Sq, KV, G, dh, causal, dtype): smollm-135m's prefill shapes (the main
+# path's first), the main path's shape once more in float32, qwen3-1.7b's
+# head width, and a ragged f32 case
+FLASH_CASES = [(4, 4096, 3, 3, 64, True, "bfloat16"),
+               (4, 4096, 3, 3, 64, True, "float32"),
+               (1, 32768, 3, 3, 64, True, "bfloat16"),
+               (1, 2048, 8, 2, 128, True, "bfloat16"),
+               (1, 2048, 8, 2, 128, False, "bfloat16"),
+               (2, 1000, 1, 4, 64, True, "float32")]
+# kernel against its plain version.  float32: the JAX package's tolerance
+# for its kernel (tests/test_kernels.py); both accumulate in float32 in
+# other orders.  bfloat16: both compute in float32 and round once to
+# bfloat16, so they differ by at most one bfloat16 step where the float32
+# results straddle a rounding boundary, 2**-7 of the value at most; rtol
+# 1e-2 holds that and atol 1e-4 only the values near 0.  Scaled to the
+# output, not JAX's 2e-2 (chosen for S <= 256): a row that averages n
+# randn values has |o| ~ sqrt(e / n), about 0.04 at S = 4096 and 0.015 at
+# S = 32768, where an atol of 2e-2 would pass a dropped key tile
+FLASH_TOL = {"float32": dict(rtol=2e-5, atol=1e-5),
+             "bfloat16": dict(rtol=1e-2, atol=1e-4)}
+# card against CPU on the same parameters and prompts (the CPU tests'
+# tolerances against the JAX package, tests/test_torch_lm.py): float32
+# logits rtol 1e-5 / atol 1e-5 and cache atol 5e-5 (summation orders of
+# cuBLAS, the kernel and the CPU differ by ulps); bfloat16 logits rtol
+# 2e-2 / atol 3e-2, cache atol 0.1 (activations rounded to bfloat16 at
+# every matmul, at other places)
+LM_TOL = {"float32": (dict(rtol=1e-5, atol=1e-5), dict(rtol=1e-5, atol=5e-5)),
+          "bfloat16": (dict(rtol=2e-2, atol=3e-2), dict(rtol=2e-2, atol=0.1))}
+SERVE_ARGS = ["--arch", "smollm-135m", "--full", "--batch", "4",
+              "--prompt-len", "4096", "--decode-steps", "32"]
+
+
+def flash_bound(b, s, kv, g, dh, causal, itemsize):
+    """Least time (ms) of one self-attention forward over S positions: 4·dh
+    float operations per (query row, visible key) pair — the lower triangle
+    when causal — over the type's peak (bf16 tensor cores, or float32
+    outside them), against q and k, v read once and the output written once
+    over the memory rate."""
+    pairs = s * (s + 1) // 2 if causal else s * s
+    ops = 4 * b * kv * g * pairs * dh
+    rate = BF16_TC_OPS_PER_S if itemsize == 2 else FP32_OPS_PER_S
+    nbytes = itemsize * (2 * b * s * kv * g * dh + 2 * b * s * kv * dh)
+    t_ops, t_bytes = ops / rate * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def phase_flash_kernel(results: dict) -> None:
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import flash_attention as cuda_flash
+    from repro_torch.kernels import ref
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(12)
+    worst = 0.0
+    for b, sq, kv, g, dh, causal, dtype in FLASH_CASES:
+        dt = getattr(torch, dtype)
+        q, k, v = (torch.randn(shape, generator=gen, device="cuda").to(dt)
+                   for shape in ((b, sq, kv, g, dh), (b, sq, kv, dh),
+                                 (b, sq, kv, dh)))
+        got = cuda_flash.flash_attention_cuda(q, k, v, causal)
+        want = ref.flash_attention_ref(q, k, v, causal)
+        torch.cuda.synchronize()
+        err = (got.float() - want.float()).abs().max().item()
+        where = (f"flash_attention (B, S, KV, G, dh)=({b}, {sq}, {kv}, {g}, "
+                 f"{dh}) {'causal' if causal else 'full'} {dtype}")
+        torch.testing.assert_close(got, want, **FLASH_TOL[dtype],
+                                   msg=f"[12] {where}: kernel differs from "
+                                       f"the plain version")
+        worst = max(worst, err)
+        n = 1 if b * sq * sq > 2 ** 28 else 5          # calls per timing
+        def launch():
+            return cuda_flash.flash_attention_cuda(q, k, v, causal)
+        ms = time_ms(launch, n)
+        dev_ms = profiled_kernel_ms(launch, max(n, 3),
+                                    "flash_attention_kernel")
+        pms = time_ms(lambda: ref.flash_attention_ref(q, k, v, causal), 1)
+        # SDPA's layout: [B, heads, S, dh], query head i on kv head i // G
+        qs = q.permute(0, 2, 3, 1, 4).reshape(b, kv * g, sq, dh).contiguous()
+        ks, vs = (x.permute(0, 2, 1, 3).contiguous() for x in (k, v))
+        lms = time_ms(lambda: F.scaled_dot_product_attention(
+            qs, ks, vs, is_causal=causal, enable_gqa=True), n)
+        bms, by = flash_bound(b, sq, kv, g, dh, causal, q.element_size())
+        log(f"[12] {where}: max abs err {err:.3g} (rtol/atol "
+            f"{FLASH_TOL[dtype]['rtol']}/{FLASH_TOL[dtype]['atol']}); kernel "
+            f"{ms:.4f} ms (device time by torch.profiler "
+            f"{'none' if dev_ms is None else f'{dev_ms:.4f}'} ms), plain "
+            f"{pms:.4f} ms, SDPA {lms:.4f} ms, bound {bms:.4f} ms ({by}), "
+            f"{100 * bms / ms:.2f}% of bound")
+        if (b, sq, kv, g, dh, causal, dtype) == FLASH_CASES[0]:
+            results["flash_attention"].update(
+                ms=ms, plain_ms=pms, library_ms=lms, bound_ms=bms,
+                bound_by=by, shape=dict(b=b, s=sq, kv=kv, g=g, dh=dh))
+    results["flash_attention"]["max_abs_err"] = worst
+
+
+def _to(tree, device):
+    return {k: _to(v, device) if isinstance(v, dict) else v.to(device)
+            for k, v in tree.items()}
+
+
+def phase_lm_card_vs_cpu() -> None:
+    """Reduced smollm-135m at S = 1024 (the kernel route) on the card and on
+    the CPU from the same parameters and prompts: prefill logits, 8 decode
+    steps fed the CPU's greedy tokens, and the KV cache."""
+    import dataclasses
+
+    from repro_torch.configs import smollm_135m
+    from repro_torch.kernels import flash_attention as cuda_flash
+    from repro_torch.models import transformer
+    for dtype in ("float32", "bfloat16"):
+        cfg = dataclasses.replace(smollm_135m.REDUCED,
+                                  compute_dtype=getattr(torch, dtype))
+        gen = torch.Generator()
+        gen.manual_seed(3)
+        cpu_params = transformer.init(gen, cfg)
+        card_params = _to(cpu_params, "cuda")
+        toks = np.random.default_rng(3).integers(0, cfg.vocab, (2, 1024))
+        batch = {"tokens": torch.tensor(toks, dtype=torch.int32)}
+        tol, ctol = LM_TOL[dtype]
+        cuda_flash.reset_launch_counts()
+        with torch.inference_mode():
+            logits_c, cache_c, pos = transformer.prefill(
+                card_params, _to(batch, "cuda"), cfg, max_len=1024 + 8)
+            logits_h, cache_h, _ = transformer.prefill(cpu_params, batch, cfg,
+                                                       max_len=1024 + 8)
+            launched = cuda_flash.launch_counts["flash_attention"]
+            if launched != cfg.n_layers:
+                raise AssertionError(f"[12] reduced prefill launched the "
+                                     f"kernel {launched} times, not "
+                                     f"{cfg.n_layers}")
+            torch.testing.assert_close(logits_c.cpu(), logits_h, **tol,
+                                       msg=f"[12] {dtype} prefill logits")
+            worst = (logits_c.cpu().float() - logits_h.float()).abs().max()
+            same = 0
+            for i in range(8):
+                tok = logits_h[:, -1].argmax(-1).to(torch.int32)
+                mine = logits_c[:, -1].argmax(-1).cpu()
+                # the card's pick is the CPU's, or ties it within tolerance
+                top = logits_h[:, -1].float().amax(-1)
+                picked = logits_h[:, -1].float().gather(
+                    1, mine.long()[:, None])[:, 0]
+                if not bool((picked >= top - tol["atol"]).all()):
+                    raise AssertionError(f"[12] {dtype} step {i}: the card "
+                                         f"picks {mine}, the CPU {tok}")
+                same += int((mine == tok).all())
+                logits_c, cache_c = transformer.decode_step(
+                    card_params, cache_c, tok.cuda(), pos + i, cfg)
+                logits_h, cache_h = transformer.decode_step(
+                    cpu_params, cache_h, tok, pos + i, cfg)
+                torch.testing.assert_close(logits_c.cpu(), logits_h, **tol,
+                                           msg=f"[12] {dtype} decode {i}")
+                worst = max(worst, (logits_c.cpu().float()
+                                    - logits_h.float()).abs().max())
+            for key in ("k", "v"):
+                torch.testing.assert_close(cache_c[key].cpu(), cache_h[key],
+                                           **ctol, msg=f"[12] {dtype} {key}")
+        log(f"[12] reduced smollm-135m, S=1024, {dtype}: card equals CPU "
+            f"within rtol/atol {tol['rtol']}/{tol['atol']} (max abs logit "
+            f"err {float(worst):.3g}), greedy tokens equal in {same}/8 "
+            f"steps, KV cache within atol {ctol['atol']}; kernel launches "
+            f"{launched}")
+
+
+def profile_device(label: str, fn, steps: int = 1) -> None:
+    """Where ``steps`` warm calls of ``fn`` spend their time (torch.profiler):
+    wall time per call, device busy share (the attention kernel's part of
+    it), device kernels per call and the top device operations."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with torch.inference_mode(), profile(
+            activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            fn()
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    cuda = torch.autograd.DeviceType.CUDA
+    events = [(e.key, e.self_device_time_total, e.count)
+              for e in prof.key_averages() if e.device_type == cuda]
+    device_us = sum(t for _, t, _ in events)
+    flash_us = sum(t for k, t, _ in events if "flash_attention_kernel" in k)
+    kernels = sum(n for _, _, n in events)
+    top = sorted(events, key=lambda e: -e[1])[:5]
+    log(f"[12p] profiled {label}: wall {wall_us / 1e3 / steps:.1f} ms per "
+        f"call, device busy {100 * device_us / wall_us:.1f}% (attention "
+        f"kernel {100 * flash_us / wall_us:.1f}%), idle "
+        f"{100 * (1 - device_us / wall_us):.1f}%, {kernels / steps:.0f} "
+        f"device operations per call; top device ops "
+        + ", ".join(f"{k[:40]}={t / 1e3 / steps:.2f} ms" for k, t, _ in top))
+
+
+def phase_serve(results: dict) -> None:
+    """``launch/serve.py``'s main at smollm-135m's full width: one prefill
+    of 4 x 4096 tokens must launch the attention kernel once per layer."""
+    from repro_torch.launch import serve
+    from repro_torch.models.registry import build
+    reset_counts()
+    torch.cuda.reset_peak_memory_stats()
+    out = serve.main(SERVE_ARGS)
+    counts = check_launches("12", {"flash_attention": 30})
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    for name in ("prefill_logits", "logits"):
+        if not bool(torch.isfinite(out[name]).all()):
+            raise AssertionError(f"[12] serve: {name} not finite")
+    if out["tokens"].shape != (4, 33):
+        raise AssertionError(f"[12] serve: tokens {out['tokens'].shape}")
+    results["flash_attention"]["launches"] = counts["flash_attention"]
+    log(f"[12] serve smollm-135m full width, batch 4, prompt 4096, 32 "
+        f"decode steps: prefill {out['prefill_ms']:.1f} ms, decode "
+        f"{out['tok_per_s']:.1f} tok/s ({out['decode_s'] * 1e3:.1f} ms), "
+        f"peak device memory {peak:.2f} GiB; attention kernel launches "
+        f"{counts['flash_attention']} (one per layer); logits finite")
+    api = build("smollm-135m", reduced=False)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(0)
+    params = api.init(gen)
+    batch = serve.make_batch(api, np.random.default_rng(0), 4, 4096, "cuda")
+    max_len = 4096 + 32
+    with torch.inference_mode():
+        logits, cache, pos = api.prefill(params, batch, max_len=max_len)
+        tok = logits[:, -1].argmax(-1).to(torch.int32)
+    profile_device("full-width prefill (4 x 4096)",
+                   lambda: api.prefill(params, batch, max_len=max_len))
+    profile_device("full-width decode step (batch 4, cache 4128)",
+                   lambda: api.decode_step(params, cache, tok, pos), steps=4)
+
+
+def phase_diurnal() -> None:
+    """The diurnal multiplier of ``diurnal-drift`` for rounds 1..400 on the
+    card against the CPU, bitwise."""
+    from repro_torch.sim.engine import scenario_diurnal_mult
+    from repro_torch.sim.scenarios import get_scenario
+    scen = get_scenario("diurnal-drift")
+    rounds = torch.arange(1, 401, dtype=torch.int32)
+    card = scenario_diurnal_mult(scen, rounds.cuda()).cpu()
+    cpu = scenario_diurnal_mult(scen, rounds)
+    if not torch.equal(card.view(torch.int32), cpu.view(torch.int32)):
+        n = int((card.view(torch.int32) != cpu.view(torch.int32)).sum())
+        raise AssertionError(f"[12] diurnal multiplier: {n} of 400 rounds "
+                             f"differ between card and CPU")
+    log("[12] diurnal-drift multiplier, rounds 1..400: card equals CPU "
+        "bitwise")
+
+
+def phase_lm(results: dict) -> None:
+    t0 = time.perf_counter()
+    phase_flash_kernel(results)
+    phase_lm_card_vs_cpu()
+    phase_serve(results)
+    phase_diurnal()
+    log(f"[12] phase time {time.perf_counter() - t0:.1f} s")
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: CUDA is not available; this script runs on "
@@ -1292,7 +1578,9 @@ def main() -> None:
     phase_ucb_kernel(results)
     phase_segmented(results)
     phase_hierarchy()
+    phase_lm(results)
     log(f"[done] {time.perf_counter() - t0:.1f} s")
+    log(card_name_and_power())          # again, beside the results
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     print(json.dumps({"kernels": [{k: r[k] for k in keys}

@@ -4,9 +4,11 @@ The JAX package's ``bandit_jax.state_tree`` flattens a ``BanditState`` to a
 dict of arrays (one run, no grid axis); the engines' ``EnvArrays`` has the
 same four fields as the port's; ``models.cnn.init`` gives the CNN's weights
 as a nested dict ``{"conv{i}": {"w", "b", "bn_scale", "bn_bias"},
-"fc{j}": {"w", "b"}}``.  These functions move such dicts — of numpy arrays
-or anything ``np.asarray`` takes — to the port's tensors and back, so both
-packages can start from the same mid-run state and the same model.
+"fc{j}": {"w", "b"}}``; ``models.transformer.init`` gives an LM's as
+``{"embed", "layers", "final_norm"}``.  These functions move such dicts —
+of numpy arrays or anything ``np.asarray`` takes — to the port's tensors
+(and the CNN's back), so both packages can start from the same mid-run
+state and the same model.
 """
 
 from __future__ import annotations
@@ -95,3 +97,24 @@ def cnn_params_to_jax(params: dict) -> dict:
             x = x.transpose(2, 3, 1, 0) if x.ndim == 4 else x.T
         out.setdefault(layer, {})[leaf] = np.ascontiguousarray(x)
     return out
+
+
+def _lm_leaf(x, device) -> torch.Tensor:
+    x = np.asarray(x)
+    if x.dtype.name == "bfloat16":           # numpy has no bfloat16 of its own
+        return torch.from_numpy(np.ascontiguousarray(x).view(np.int16)
+                                ).view(torch.bfloat16).to(device)
+    return torch.tensor(x, device=device)
+
+
+def lm_params_from_tree(tree: dict, device=None) -> dict:
+    """The port's LM parameters (``models/transformer.py``) from the JAX
+    package's ``transformer.init`` tree, as numpy arrays or anything
+    ``np.asarray`` takes: ``embed.tok`` (and ``embed.unembed`` untied),
+    the [L]-stacked ``layers.{attn_norm, mlp_norm, attn.{wq, wk, wv, wo
+    [, q_norm, k_norm]}, mlp.{w_gate, w_up, w_down}}`` and ``final_norm``.
+    Same nesting, same dtypes (bfloat16 kept), same ``[d_in, d_out]``
+    layout, so ``x @ w`` reads as in the JAX package."""
+    return {k: (lm_params_from_tree(v, device) if isinstance(v, dict)
+                else _lm_leaf(v, device))
+            for k, v in tree.items()}

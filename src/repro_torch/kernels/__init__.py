@@ -1,2 +1,3 @@
-"""Port of ``repro.kernels``: the bandit-round and FedAvg-combine kernels,
-their plain versions and the routing between them."""
+"""Port of ``repro.kernels``: the bandit-round, top-S, UCB-score,
+FedAvg-combine and attention kernels, their plain versions and the routing
+between them."""

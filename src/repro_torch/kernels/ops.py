@@ -1,9 +1,10 @@
 """Routing of the port's kernels — the port of ``repro.kernels.ops``
 (``bandit_round``, ``bandit_round_sampled``, ``local_topk``,
-``ucb_scores``, ``fedavg_combine``).
+``ucb_scores``, ``fedavg_combine``, ``flash_attention``).
 
 A CUDA tensor goes to the hand-written kernel (kernels/bandit_round.py,
-kernels/topk_slots.py, kernels/ucb_score.py, kernels/fedavg.py); a CPU
+kernels/topk_slots.py, kernels/ucb_score.py, kernels/fedavg.py,
+kernels/flash_attention.py); a CPU
 tensor goes to the plain version (kernels/ref.py).  The bandit round's
 kernel updates the state in place and its plain version returns a new one:
 callers use the returned state and treat the one passed in as consumed.
@@ -13,6 +14,7 @@ from __future__ import annotations
 
 from repro_torch.kernels import bandit_round as _cuda
 from repro_torch.kernels import fedavg as _fedavg
+from repro_torch.kernels import flash_attention as _flash
 from repro_torch.kernels import ref as _ref
 from repro_torch.kernels import topk_slots as _topk
 from repro_torch.kernels import ucb_score as _ucb
@@ -68,3 +70,10 @@ def fedavg_combine(stacked, weights):
     fn = (_fedavg.fedavg_combine_cuda if stacked.is_cuda
           else _ref.fedavg_combine_ref)
     return fn(stacked, weights)
+
+
+def flash_attention(q, k, v, causal: bool = True):
+    """Causal (or full) GQA attention: ``q`` [B, Sq, KV, G, dh], ``k``/``v``
+    [B, Skv, KV, dh] -> [B, Sq, KV, G, dh] in q's dtype."""
+    fn = _flash.flash_attention_cuda if q.is_cuda else _ref.flash_attention_ref
+    return fn(q, k, v, causal)

@@ -1,7 +1,7 @@
 """Plain PyTorch versions of the port's kernels — the port of
 ``repro.kernels.ref`` (``ucb_scores_ref``, ``truncnorm_times_ref``,
 ``bandit_round_ref``, ``local_topk_ref``, ``segmented_topk_ref``,
-``fedavg_ref``).
+``fedavg_ref``, ``flash_attention_ref``).
 
 They are the CPU path of ``kernels/ops.py`` and the references that the
 CUDA kernels (kernels/csrc/*.cu) are held against on the card: the same
@@ -219,3 +219,70 @@ def fedavg_combine_ref(stacked: torch.Tensor,
     for c in range(1, x.shape[-2]):
         acc = acc + x[..., c, :] * w[..., c, :]
     return acc.to(stacked.dtype)
+
+
+NEG_LOGIT = -1e30          # masked logit and initial running max
+
+
+def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        causal: bool = True, *, window: int | None = None,
+                        q_offset: int = 0, kv_valid_len: int | None = None,
+                        q_block: int = 512,
+                        kv_block: int = 1024) -> torch.Tensor:
+    """GQA attention by blocks with an online softmax: ``q`` [B, Sq, KV, G,
+    dh], ``k``/``v`` [B, Skv, KV, dh] -> [B, Sq, KV, G, dh] in q's dtype.
+
+    The plain version of the ``flash_attention`` kernel
+    (kernels/csrc/flash_attention.cu) with the TPU kernel's semantics: q, k
+    and v read as float32, logits ``(q . k) * dh**-0.5`` in float32, a
+    top-left causal mask (query i sees keys j <= i + ``q_offset``), masked
+    logits -1e30, float32 running max ``m`` (from -1e30), sum ``l`` and
+    accumulator, output ``acc / max(l, 1e-30)``.  Key blocks entirely above
+    the diagonal are skipped; ragged Sq and Skv are sliced, never padded.
+    Memory stays at one [B, KV, G, q_block, kv_block] block of logits, so
+    S = 32768 runs.  ``window``, ``q_offset`` and ``kv_valid_len`` are the
+    extra masks of ``models/layers.flash_attention``, which is this
+    function; the kernel takes none of them.  Skipping a fully masked block
+    leaves every row that has a visible key unchanged; a row with none
+    (which no caller makes) averages the values of the blocks visited.
+    """
+    b, sq, kv, g, dh = q.shape
+    skv = k.shape[1]
+    scale = dh ** -0.5
+    dev = q.device
+    kf = k.float().permute(0, 2, 1, 3)                 # [B, KV, Skv, dh]
+    vf = v.float().permute(0, 2, 1, 3)
+    out = torch.empty_like(q)
+    for q0 in range(0, sq, q_block):
+        q1 = min(q0 + q_block, sq)
+        qb = q[:, q0:q1].float().permute(0, 2, 3, 1, 4)  # [B, KV, G, bq, dh]
+        q_pos = q_offset + torch.arange(q0, q1, device=dev)
+        m = torch.full(qb.shape[:-1], NEG_LOGIT, device=dev)
+        l = torch.zeros(qb.shape[:-1], device=dev)
+        acc = torch.zeros(qb.shape, device=dev)
+        kv_end = min(skv, q_offset + q1) if causal else skv
+        for k0 in range(0, kv_end, kv_block):
+            k1 = min(k0 + kv_block, skv)
+            s = torch.einsum("bkgqd,bktd->bkgqt", qb, kf[:, :, k0:k1]) * scale
+            kv_pos = torch.arange(k0, k1, device=dev)
+            mask = None
+            if causal:
+                mask = q_pos[:, None] >= kv_pos[None, :]
+            if window is not None:
+                w = q_pos[:, None] - kv_pos[None, :] < window
+                mask = w if mask is None else mask & w
+            if kv_valid_len is not None:
+                w = (kv_pos < kv_valid_len)[None, :]
+                mask = w if mask is None else mask & w
+            if mask is not None:
+                s = torch.where(mask, s, NEG_LOGIT)
+            m_new = torch.maximum(m, s.amax(-1))
+            p = torch.exp(s - m_new[..., None])
+            corr = torch.exp(m - m_new)
+            l = l * corr + p.sum(-1)
+            acc = acc * corr[..., None] + torch.einsum(
+                "bkgqt,bktd->bkgqd", p, vf[:, :, k0:k1])
+            m = m_new
+        o = acc / l.clamp_min(1e-30)[..., None]
+        out[:, q0:q1] = o.permute(0, 3, 1, 2, 4).to(q.dtype)
+    return out

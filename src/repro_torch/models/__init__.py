@@ -1,1 +1,2 @@
-"""Port of ``repro.models``: the paper's CIFAR CNN."""
+"""Port of ``repro.models``: the paper's CIFAR CNN and the dense LMs
+(layers, transformer, registry)."""

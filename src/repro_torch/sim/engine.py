@@ -142,26 +142,73 @@ def throughput_bps(dist_m: torch.Tensor) -> torch.Tensor:
     return network.BANDWIDTH_HZ * rho.clamp_max(network.RHO_MAX)
 
 
+# glibc's float sin (sysdeps/ieee754/flt-32/s_sinf.c), the function XLA:CPU
+# calls for a float32 sin: pi/2 and 2/pi, and the polynomial coefficients of
+# cos (c0..c4) and sin (s1..s3) on the reduced argument
+_SINF_HPI_INV = float.fromhex("0x1.45F306DC9C883p-1")
+_SINF_HPI = float.fromhex("0x1.921FB54442D18p0")
+_SINF_C = (1.0, float.fromhex("-0x1.ffffffd0c621cp-2"),
+           float.fromhex("0x1.55553e1068f19p-5"),
+           float.fromhex("-0x1.6c087e89a359dp-10"),
+           float.fromhex("0x1.99343027bf8c3p-16"))
+_SINF_S = (float.fromhex("-0x1.555545995a603p-3"),
+           float.fromhex("0x1.1107605230bc4p-7"),
+           float.fromhex("-0x1.994eb3774cf24p-13"))
+
+
+def sinf(x: torch.Tensor) -> torch.Tensor:
+    """float32 sin computed as glibc's ``sinf`` computes it: the argument
+    reduced by pi/2 in float64, a float64 polynomial, one rounding to
+    float32.  ``torch.sin`` (SLEEF on the CPU, CUDA's ``sinf`` on the card)
+    differs from it, and from each other, by an ulp on some inputs; this is
+    the same float64 arithmetic on either device, so the card, the CPU and
+    the JAX package on the CPU agree bitwise.  For |x| >= 120 glibc reduces
+    with more bits of pi than one float64; there this function can differ
+    from it by an ulp."""
+    xd = x.double()
+    n = torch.floor(xd * _SINF_HPI_INV + 0.5)
+    r = xd - n * _SINF_HPI
+    quad = n - 4.0 * torch.floor(n * 0.25)          # n mod 4
+    r2 = r * r
+    xs = torch.where(quad == 2, -r, r)
+    c0, c1, c2, c3, c4 = _SINF_C
+    s1, s2, s3 = _SINF_S
+    x3 = xs * r2
+    sin_p = (xs + x3 * s1) + (x3 * r2) * (s2 + r2 * s3)
+    x4 = r2 * r2
+    cos_p = ((c0 + r2 * c1) + x4 * c2) + (x4 * r2) * (c3 + r2 * c4)
+    cos_p = torch.where(quad == 3, -cos_p, cos_p)
+    out = torch.where((quad == 1) | (quad == 3), cos_p, sin_p).float()
+    return torch.where(x.abs() < 2.0 ** -12, x, out)
+
+
 def scenario_diurnal_mult(scen: Scenario, rounds: torch.Tensor) -> torch.Tensor:
     """Per-round diurnal throughput multiplier (1.0 without diurnal drift);
-    ``rounds``: 1-based round indices."""
+    ``rounds``: 1-based round indices.  The angle divides through ``fdiv``
+    (one IEEE rounding, as XLA) and the sine is :func:`sinf`, so the
+    multiplier is bitwise the JAX package's on the CPU and on the card."""
     rounds = rounds.float()
     if scen.diurnal_amp > 0.0 and scen.diurnal_period > 0:
-        return (1.0 + scen.diurnal_amp * torch.sin(
-            2.0 * math.pi * rounds / scen.diurnal_period)).clamp_min(0.05)
+        angle = bandit.fdiv(2.0 * math.pi * rounds, scen.diurnal_period)
+        return (1.0 + scen.diurnal_amp * sinf(angle)).clamp_min(0.05)
     return torch.ones_like(rounds)
 
 
 def scenario_thr_mult(scen: Scenario, cell_id: torch.Tensor,
-                      normals: torch.Tensor | None, rnd: int):
+                      normals: torch.Tensor | None, rnd: int,
+                      diurnal: torch.Tensor | None = None):
     """Round ``rnd``'s (1-based) multiplier on mean throughput: diurnal
     drift times correlated cell congestion, from the round's [G, cells]
     standard normals.  Broadcastable against [G, K]; None when the
-    scenario has neither."""
+    scenario has neither.  ``diurnal``: the diurnal multipliers of rounds
+    1..n (n >= ``rnd``) made beforehand, so that the round indexes them
+    instead of computing its own."""
     mult = None
     if scen.diurnal_amp > 0.0 and scen.diurnal_period > 0:
-        mult = scenario_diurnal_mult(
-            scen, torch.tensor([rnd], device=cell_id.device)).view(1, 1)
+        mult = (diurnal[rnd - 1] if diurnal is not None
+                else scenario_diurnal_mult(
+                    scen, torch.tensor([rnd], device=cell_id.device))
+                ).view(1, 1)
     if normals is not None:
         cell_f = torch.exp(scen.congestion_sigma * normals)[:, cell_id]
         mult = cell_f if mult is None else mult * cell_f
@@ -336,6 +383,18 @@ class RoundRunner:
             self.n_cells = int(scen.congestion_cells)
             z = torch.zeros((g, self.n_cells), device=env.mean_theta.device)
             self.cell_n, self.cell_tinc = z, z.clone()
+        self._diurnal = torch.empty(0, device=env.mean_theta.device)
+
+    def _diurnal_table(self, rnd: int) -> torch.Tensor:
+        """The diurnal multipliers of rounds 1..n with n >= ``rnd``, made
+        for twice as many rounds whenever a round outgrows them: the
+        multiplier is elementwise, so the table holds the same bits as a
+        per-round call, at a handful of calls per sweep."""
+        if rnd > self._diurnal.shape[0]:
+            n = max(64, 2 * rnd)
+            self._diurnal = scenario_diurnal_mult(self.scen, torch.arange(
+                1, n + 1, device=self._diurnal.device))
+        return self._diurnal
 
     def flat_state(self) -> bandit.BanditState:
         """The bandit state in the flat [G, K] layout."""
@@ -354,7 +413,8 @@ class RoundRunner:
             d = dataclasses.replace(d, cand=bandit.hier_cand_idx(
                 d.cell_u, cells_sel, k, self.n_cells, n_req_cell))
             pre_tinc = self.state.sum_tinc.clone()   # the kernel updates it
-        mult = scenario_thr_mult(self.scen, env.cell_id, d.cong, rnd)
+        mult = scenario_thr_mult(self.scen, env.cell_id, d.cong, rnd,
+                                 self._diurnal_table(rnd))
         mu_t = self.m_theta if mult is None else self.m_theta * mult
         m_gamma, bits = self.m_gamma, self.model_bits
         if self.shards:
