@@ -75,6 +75,18 @@ else.  Phases (every mismatch raises, so any failure exits non-zero):
      decode tok/s, peak memory, exactly 30 kernel launches, finite logits,
      and a profile of one prefill; the diurnal multiplier card against CPU,
      bitwise.
+ 13. the griffin slice: the RG-LRU scan kernel against its plain version
+     at the full-width prefill's (B, T, W) = (4, 4096, 4096) f32, (2, 2048,
+     4096) bf16, a long (1, 16384, 4096) f32 and a ragged (3, 1000, 1000)
+     f32 (f32 bitwise, bf16 within one output step), timed beside its plain
+     version and its bound; reduced recurrentgemma-9b at S = 1024 (window
+     32) on the card against the CPU (f32 and bf16: prefill logits and
+     states, 4 decode steps), one kernel launch per recurrent layer;
+     ``launch/serve.py`` at recurrentgemma-9b's full width (38 layers,
+     9,396,088,832 float32 parameters, 4 x 4096 prompt tokens, 16 greedy
+     steps): exactly 26 scan launches and no attention-kernel launch per
+     prefill, finite logits, prefill ms, decode tok/s, peak memory, and
+     profiles of one prefill and one decode step.
 
 Launch counts are zeroed before each sweep and read after it; each sweep
 must launch its kernels once per (policy, round) (the local top-S once per
@@ -122,9 +134,12 @@ KERNELS = {
     "flash_attention": dict(
         replaces="src/repro/kernels/flash_attention.py:81",
         source=CSRC + "flash_attention.cu"),
+    "rg_lru_scan": dict(
+        replaces="src/repro/kernels/rg_lru.py:49",
+        source=CSRC + "rg_lru.cu"),
 }
 SOURCES = ("bandit_round", "fedavg", "topk_slots", "ucb_score",
-           "flash_attention")
+           "flash_attention", "rg_lru")
 N_CNN = 4_583_146              # parameters of the paper CNN
 FEDAVG_CASES = [(1, 5, N_CNN), (1, 100, N_CNN), (2, 5, N_CNN), (1, 3, 1),
                 (1, 10, 8192 * 3 + 17)]
@@ -678,8 +693,9 @@ def phase_fedavg_kernel(results: dict) -> None:
 
 def _wrappers():
     from repro_torch.kernels import (bandit_round, fedavg, flash_attention,
-                                     topk_slots, ucb_score)
-    return bandit_round, fedavg, topk_slots, ucb_score, flash_attention
+                                     rg_lru, topk_slots, ucb_score)
+    return (bandit_round, fedavg, topk_slots, ucb_score, flash_attention,
+            rg_lru)
 
 
 def reset_counts() -> None:
@@ -1401,6 +1417,19 @@ def _to(tree, device):
             for k, v in tree.items()}
 
 
+def greedy_picks(logits_c, logits_h, atol: float, where: str):
+    """The CPU's greedy tokens from the last position of ``logits_h``, and
+    whether the card's (``logits_c``) are the same; the card's pick must be
+    the CPU's or tie it within ``atol``."""
+    tok = logits_h[:, -1].argmax(-1).to(torch.int32)
+    mine = logits_c[:, -1].argmax(-1).cpu()
+    top = logits_h[:, -1].float().amax(-1)
+    picked = logits_h[:, -1].float().gather(1, mine.long()[:, None])[:, 0]
+    if not bool((picked >= top - atol).all()):
+        raise AssertionError(f"{where}: the card picks {mine}, the CPU {tok}")
+    return tok, int((mine == tok).all())
+
+
 def phase_lm_card_vs_cpu() -> None:
     """Reduced smollm-135m at S = 1024 (the kernel route) on the card and on
     the CPU from the same parameters and prompts: prefill logits, 8 decode
@@ -1436,16 +1465,9 @@ def phase_lm_card_vs_cpu() -> None:
             worst = (logits_c.cpu().float() - logits_h.float()).abs().max()
             same = 0
             for i in range(8):
-                tok = logits_h[:, -1].argmax(-1).to(torch.int32)
-                mine = logits_c[:, -1].argmax(-1).cpu()
-                # the card's pick is the CPU's, or ties it within tolerance
-                top = logits_h[:, -1].float().amax(-1)
-                picked = logits_h[:, -1].float().gather(
-                    1, mine.long()[:, None])[:, 0]
-                if not bool((picked >= top - tol["atol"]).all()):
-                    raise AssertionError(f"[12] {dtype} step {i}: the card "
-                                         f"picks {mine}, the CPU {tok}")
-                same += int((mine == tok).all())
+                tok, agree = greedy_picks(logits_c, logits_h, tol["atol"],
+                                          f"[12] {dtype} step {i}")
+                same += agree
                 logits_c, cache_c = transformer.decode_step(
                     card_params, cache_c, tok.cuda(), pos + i, cfg)
                 logits_h, cache_h = transformer.decode_step(
@@ -1464,10 +1486,12 @@ def phase_lm_card_vs_cpu() -> None:
             f"{launched}")
 
 
-def profile_device(label: str, fn, steps: int = 1) -> None:
+def profile_device(label: str, fn, steps: int = 1, tag: str = "12p",
+                   kernel: str = "flash_attention_kernel") -> None:
     """Where ``steps`` warm calls of ``fn`` spend their time (torch.profiler):
-    wall time per call, device busy share (the attention kernel's part of
-    it), device kernels per call and the top device operations."""
+    wall time per call, device busy share (the part of it in device kernels
+    whose name holds ``kernel``), device kernels per call and the top
+    device operations."""
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     with torch.inference_mode(), profile(
@@ -1481,12 +1505,12 @@ def profile_device(label: str, fn, steps: int = 1) -> None:
     events = [(e.key, e.self_device_time_total, e.count)
               for e in prof.key_averages() if e.device_type == cuda]
     device_us = sum(t for _, t, _ in events)
-    flash_us = sum(t for k, t, _ in events if "flash_attention_kernel" in k)
+    kernel_us = sum(t for k, t, _ in events if kernel in k)
     kernels = sum(n for _, _, n in events)
     top = sorted(events, key=lambda e: -e[1])[:5]
-    log(f"[12p] profiled {label}: wall {wall_us / 1e3 / steps:.1f} ms per "
-        f"call, device busy {100 * device_us / wall_us:.1f}% (attention "
-        f"kernel {100 * flash_us / wall_us:.1f}%), idle "
+    log(f"[{tag}] profiled {label}: wall {wall_us / 1e3 / steps:.1f} ms per "
+        f"call, device busy {100 * device_us / wall_us:.1f}% ({kernel} "
+        f"{100 * kernel_us / wall_us:.1f}%), idle "
         f"{100 * (1 - device_us / wall_us):.1f}%, {kernels / steps:.0f} "
         f"device operations per call; top device ops "
         + ", ".join(f"{k[:40]}={t / 1e3 / steps:.2f} ms" for k, t, _ in top))
@@ -1554,6 +1578,228 @@ def phase_lm(results: dict) -> None:
     log(f"[12] phase time {time.perf_counter() - t0:.1f} s")
 
 
+# ---------------------------------------------------------------------------
+# phase 13: the griffin slice (RG-LRU scan kernel, recurrentgemma-9b serving)
+# ---------------------------------------------------------------------------
+
+# (B, T, W, dtype): the full-width prefill's shape (the main path's, first),
+# bf16, a long T and a ragged shape
+RG_LRU_CASES = [(4, 4096, 4096, "float32"), (2, 2048, 4096, "bfloat16"),
+                (1, 16384, 4096, "float32"), (3, 1000, 1000, "float32")]
+# kernel against its plain version: float32 bitwise (both round each step
+# once, __fmaf_rn in the kernel, addcmul in the plain version); bfloat16
+# within one output step (2**-7 of the value at most), though both carry
+# the same float32 value and round it to bfloat16 once.  Read on an H100
+# (700 W): no entry differs at any case, in either dtype
+RG_LRU_BF16_RTOL = 2 ** -7
+# card against CPU on the same parameters and prompts (the CPU tests'
+# tolerances against the JAX package, tests/test_torch_griffin.py): logits
+# and states
+GRIFFIN_TOL = {"float32": (dict(rtol=1e-5, atol=1e-5),
+                           dict(rtol=1e-5, atol=5e-5)),
+               "bfloat16": (dict(rtol=2e-2, atol=5e-2),
+                            dict(rtol=2e-2, atol=0.1))}
+GRIFFIN_SERVE_ARGS = ["--arch", "recurrentgemma-9b", "--full", "--batch",
+                      "4", "--prompt-len", "4096", "--decode-steps", "16"]
+GRIFFIN_PARAMS = 9_396_088_832   # the JAX package's count of griffin.init
+GRIFFIN_SCANS = 26               # recurrent layers: 12 groups x 2 + 2 tail
+
+
+def rg_lru_bound(b, t, w, itemsize):
+    """Least time (ms) of one scan: a and b read once and y written once
+    over the memory rate, against 2 float operations (one FMA) per element
+    over the float32 rate."""
+    t_bytes = 3 * b * t * w * itemsize / HBM_BYTES_PER_S * 1e3
+    t_ops = 2 * b * t * w / FP32_OPS_PER_S * 1e3
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def phase_rg_lru_kernel(results: dict) -> None:
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import rg_lru as cuda_rg
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(13)
+    worst = 0.0
+    for b, t, w, dtype in RG_LRU_CASES:
+        dt = getattr(torch, dtype)
+        # a in [0, 1) as the model's exp(-8 softplus(lam) sigmoid(r)); b at
+        # the model's scale, sqrt(1 - a^2) times a unit normal
+        a = torch.rand((b, t, w), generator=gen, device="cuda")
+        x = (torch.randn((b, t, w), generator=gen, device="cuda")
+             * torch.sqrt(1.0 - a * a)).to(dt)
+        a = a.to(dt)
+        got = cuda_rg.rg_lru_scan_cuda(a, x)
+        want = ref.rg_lru_ref(a, x)
+        torch.cuda.synchronize()
+        err = (got.float() - want.float()).abs().max().item()
+        n_diff = int((got != want).sum())
+        where = f"rg_lru_scan (B, T, W)=({b}, {t}, {w}) {dtype}"
+        if dtype == "float32":
+            if n_diff:
+                raise AssertionError(f"[13] {where}: {n_diff} entries differ "
+                                     f"from the plain version (max abs "
+                                     f"{err:.3g}); float32 must be bitwise")
+        else:
+            torch.testing.assert_close(got, want, rtol=RG_LRU_BF16_RTOL,
+                                       atol=0, msg=f"[13] {where}: kernel "
+                                       f"differs from the plain version")
+        worst = max(worst, err)
+        def launch():
+            return cuda_rg.rg_lru_scan_cuda(a, x)
+        ms = time_ms(launch, 10)
+        dev_ms = profiled_kernel_ms(launch, 5, "rg_lru_kernel")
+        pms = time_ms(lambda: ref.rg_lru_ref(a, x), 1)
+        bms, by = rg_lru_bound(b, t, w, a.element_size())
+        rule = ("bitwise required" if dtype == "float32"
+                else f"rtol {RG_LRU_BF16_RTOL}")
+        log(f"[13] {where}: max abs err {err:.3g}, {n_diff} entries differ "
+            f"({rule}); kernel {ms:.4f} ms (device time by torch.profiler "
+            f"{'none' if dev_ms is None else f'{dev_ms:.4f}'} ms), plain "
+            f"{pms:.4f} ms, bound {bms:.4f} ms ({by}), "
+            f"{100 * bms / ms:.2f}% of bound; no single PyTorch call")
+        if (b, t, w, dtype) == RG_LRU_CASES[0]:
+            results["rg_lru_scan"].update(
+                ms=ms, plain_ms=pms, bound_ms=bms, bound_by=by,
+                shape=dict(b=b, t=t, w=w))
+    results["rg_lru_scan"]["max_abs_err"] = worst
+
+
+def _state_items(states: dict):
+    """(name, tensor) of every leaf of a griffin decode state."""
+    for name, v in states.items():
+        if isinstance(v, dict):
+            yield from ((f"{name}.{k}", t) for k, t in v.items())
+        else:
+            yield from zip((f"{name}.h", f"{name}.conv_buf"), v)
+
+
+def phase_griffin_card_vs_cpu() -> None:
+    """Reduced recurrentgemma-9b at S = 1024 (window 32, so the window mask
+    and the ring cache both matter) on the card and on the CPU from the
+    same parameters and prompts: prefill logits and states, then 4 decode
+    steps fed the CPU's greedy tokens."""
+    import dataclasses
+
+    from repro_torch.configs import recurrentgemma_9b
+    from repro_torch.kernels import rg_lru as cuda_rg
+    from repro_torch.models import griffin
+    for dtype in ("float32", "bfloat16"):
+        cfg = dataclasses.replace(recurrentgemma_9b.REDUCED,
+                                  compute_dtype=getattr(torch, dtype))
+        n_rec = 2 * (cfg.n_layers // 3) + cfg.n_layers % 3
+        gen = torch.Generator()
+        gen.manual_seed(3)
+        cpu_params = griffin.init(gen, cfg)
+        card_params = _to(cpu_params, "cuda")
+        toks = np.random.default_rng(3).integers(0, cfg.vocab, (2, 1024))
+        batch = {"tokens": torch.tensor(toks, dtype=torch.int32)}
+        tol, stol = GRIFFIN_TOL[dtype]
+        cuda_rg.reset_launch_counts()
+        with torch.inference_mode():
+            logits_c, st_c, pos = griffin.prefill(card_params,
+                                                  _to(batch, "cuda"), cfg)
+            logits_h, st_h, _ = griffin.prefill(cpu_params, batch, cfg)
+            launched = cuda_rg.launch_counts["rg_lru_scan"]
+            if launched != n_rec:
+                raise AssertionError(f"[13] reduced prefill launched the "
+                                     f"scan kernel {launched} times, not "
+                                     f"{n_rec}")
+            for (name, c), (_, h) in zip(_state_items(st_c),
+                                         _state_items(st_h)):
+                torch.testing.assert_close(c.cpu(), h, **stol,
+                                           msg=f"[13] {dtype} prefill {name}")
+            torch.testing.assert_close(logits_c.cpu(), logits_h, **tol,
+                                       msg=f"[13] {dtype} prefill logits")
+            worst = (logits_c.cpu().float() - logits_h.float()).abs().max()
+            same = 0
+            for i in range(4):
+                tok, agree = greedy_picks(logits_c, logits_h, tol["atol"],
+                                          f"[13] {dtype} step {i}")
+                same += agree
+                logits_c, st_c = griffin.decode_step(card_params, st_c,
+                                                     tok.cuda(), pos + i, cfg)
+                logits_h, st_h = griffin.decode_step(cpu_params, st_h, tok,
+                                                     pos + i, cfg)
+                torch.testing.assert_close(logits_c.cpu(), logits_h, **tol,
+                                           msg=f"[13] {dtype} decode {i}")
+                worst = max(worst, (logits_c.cpu().float()
+                                    - logits_h.float()).abs().max())
+            for (name, c), (_, h) in zip(_state_items(st_c),
+                                         _state_items(st_h)):
+                torch.testing.assert_close(c.cpu(), h, **stol,
+                                           msg=f"[13] {dtype} {name}")
+            if cuda_rg.launch_counts["rg_lru_scan"] != n_rec:
+                raise AssertionError("[13] decode launched the scan kernel")
+        log(f"[13] reduced recurrentgemma-9b, S=1024, window "
+            f"{cfg.sliding_window}, {dtype}: card equals CPU within "
+            f"rtol/atol {tol['rtol']}/{tol['atol']} (max abs logit err "
+            f"{float(worst):.3g}), greedy tokens equal in {same}/4 steps, "
+            f"states within atol {stol['atol']}; scan launches {launched} "
+            f"(one per recurrent layer)")
+
+
+def _leaves(tree: dict):
+    for v in tree.values():
+        yield from (_leaves(v) if isinstance(v, dict) else (v,))
+
+
+def phase_griffin_serve(results: dict) -> None:
+    """``launch/serve.py``'s main at recurrentgemma-9b's full width: one
+    prefill of 4 x 4096 tokens must launch the scan kernel once per
+    recurrent layer and the attention kernel never (griffin's local
+    attention runs the plain blockwise version, as in the JAX package)."""
+    from repro_torch.launch import serve
+    from repro_torch.models.registry import build
+    reset_counts()
+    torch.cuda.reset_peak_memory_stats()
+    out = serve.main(GRIFFIN_SERVE_ARGS)
+    counts = check_launches("13", {"rg_lru_scan": GRIFFIN_SCANS})
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    for name in ("prefill_logits", "logits"):
+        if not bool(torch.isfinite(out[name]).all()):
+            raise AssertionError(f"[13] serve: {name} not finite")
+    if out["tokens"].shape != (4, 17):
+        raise AssertionError(f"[13] serve: tokens {out['tokens'].shape}")
+    results["rg_lru_scan"]["launches"] = counts["rg_lru_scan"]
+    log(f"[13] serve recurrentgemma-9b full width, batch 4, prompt 4096, 16 "
+        f"decode steps: prefill {out['prefill_ms']:.1f} ms, decode "
+        f"{out['tok_per_s']:.1f} tok/s ({out['decode_s'] * 1e3:.1f} ms), "
+        f"peak device memory {peak:.2f} GiB; scan kernel launches "
+        f"{counts['rg_lru_scan']} (one per recurrent layer), attention "
+        f"kernel launches {counts['flash_attention']}; logits finite")
+    del out
+    api = build("recurrentgemma-9b", reduced=False)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(0)
+    params = api.init(gen)
+    n_params = sum(t.numel() for t in _leaves(params))
+    if n_params != GRIFFIN_PARAMS:
+        raise AssertionError(f"[13] {n_params} parameters, not "
+                             f"{GRIFFIN_PARAMS}")
+    batch = serve.make_batch(api, np.random.default_rng(0), 4, 4096, "cuda")
+    with torch.inference_mode():
+        logits, states, pos = api.prefill(params, batch)
+        tok = logits[:, -1].argmax(-1).to(torch.int32)
+    profile_device("full-width prefill (4 x 4096)",
+                   lambda: api.prefill(params, batch), tag="13p",
+                   kernel="rg_lru_kernel")
+    profile_device("full-width decode step (batch 4, window 2048)",
+                   lambda: api.decode_step(params, states, tok, pos),
+                   steps=2, tag="13p", kernel="rg_lru_kernel")
+    del params, states, logits
+    torch.cuda.empty_cache()
+    log(f"[13] {n_params} parameters ({n_params * 4 / 1e9:.1f} GB float32) "
+        f"freed")
+
+
+def phase_griffin(results: dict) -> None:
+    t0 = time.perf_counter()
+    phase_rg_lru_kernel(results)
+    phase_griffin_card_vs_cpu()
+    phase_griffin_serve(results)
+    log(f"[13] phase time {time.perf_counter() - t0:.1f} s")
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: CUDA is not available; this script runs on "
@@ -1579,6 +1825,7 @@ def main() -> None:
     phase_segmented(results)
     phase_hierarchy()
     phase_lm(results)
+    phase_griffin(results)
     log(f"[done] {time.perf_counter() - t0:.1f} s")
     log(card_name_and_power())          # again, beside the results
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",

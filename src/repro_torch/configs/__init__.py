@@ -1,2 +1,3 @@
-"""Port of ``repro.configs``: the dense architectures' configs (copies).
+"""Port of ``repro.configs``: the dense architectures' and
+recurrentgemma-9b's configs (copies).
 """

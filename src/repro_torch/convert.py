@@ -4,8 +4,10 @@ The JAX package's ``bandit_jax.state_tree`` flattens a ``BanditState`` to a
 dict of arrays (one run, no grid axis); the engines' ``EnvArrays`` has the
 same four fields as the port's; ``models.cnn.init`` gives the CNN's weights
 as a nested dict ``{"conv{i}": {"w", "b", "bn_scale", "bn_bias"},
-"fc{j}": {"w", "b"}}``; ``models.transformer.init`` gives an LM's as
-``{"embed", "layers", "final_norm"}``.  These functions move such dicts —
+"fc{j}": {"w", "b"}}``; ``models.transformer.init`` gives a dense LM's as
+``{"embed", "layers", "final_norm"}`` and ``models.griffin.init`` a
+griffin's as ``{"embed", "groups", "final_norm", "tail_rec{t}",
+"tail_mlp{t}"}``.  These functions move such dicts —
 of numpy arrays or anything ``np.asarray`` takes — to the port's tensors
 (and the CNN's back), so both packages can start from the same mid-run
 state and the same model.
@@ -108,13 +110,18 @@ def _lm_leaf(x, device) -> torch.Tensor:
 
 
 def lm_params_from_tree(tree: dict, device=None) -> dict:
-    """The port's LM parameters (``models/transformer.py``) from the JAX
-    package's ``transformer.init`` tree, as numpy arrays or anything
-    ``np.asarray`` takes: ``embed.tok`` (and ``embed.unembed`` untied),
-    the [L]-stacked ``layers.{attn_norm, mlp_norm, attn.{wq, wk, wv, wo
-    [, q_norm, k_norm]}, mlp.{w_gate, w_up, w_down}}`` and ``final_norm``.
-    Same nesting, same dtypes (bfloat16 kept), same ``[d_in, d_out]``
-    layout, so ``x @ w`` reads as in the JAX package."""
+    """The port's LM parameters from the JAX package's ``init`` tree, as
+    numpy arrays or anything ``np.asarray`` takes; any nesting of dicts is
+    carried over as it is.  For ``models/transformer.py``: ``embed.tok``
+    (and ``embed.unembed`` untied), the [L]-stacked ``layers.{attn_norm,
+    mlp_norm, attn.{wq, wk, wv, wo [, q_norm, k_norm]}, mlp.{w_gate, w_up,
+    w_down}}`` and ``final_norm``.  For ``models/griffin.py``:
+    ``embed.tok``, the [G]-stacked ``groups.{rec0, rec1}.{norm, w_x,
+    w_gate, conv, w_r, w_i, lam, w_out}``, ``groups.attn.{norm, wq, wkv,
+    wo}``, ``groups.{mlp0, mlp1, mlp2}.{norm, w_gate, w_up, w_down}``, the
+    unstacked ``tail_rec{t}``/``tail_mlp{t}`` and ``final_norm``.  Same
+    dtypes (bfloat16 kept), same ``[d_in, d_out]`` layout, so ``x @ w``
+    reads as in the JAX package."""
     return {k: (lm_params_from_tree(v, device) if isinstance(v, dict)
                 else _lm_leaf(v, device))
             for k, v in tree.items()}

@@ -1,3 +1,3 @@
 """Port of ``repro.kernels``: the bandit-round, top-S, UCB-score,
-FedAvg-combine and attention kernels, their plain versions and the routing
-between them."""
+FedAvg-combine, attention and RG-LRU scan kernels, their plain versions and
+the routing between them."""

@@ -1,11 +1,12 @@
 """Routing of the port's kernels — the port of ``repro.kernels.ops``
 (``bandit_round``, ``bandit_round_sampled``, ``local_topk``,
-``ucb_scores``, ``fedavg_combine``, ``flash_attention``).
+``ucb_scores``, ``fedavg_combine``, ``flash_attention``,
+``rg_lru_scan``).
 
 A CUDA tensor goes to the hand-written kernel (kernels/bandit_round.py,
 kernels/topk_slots.py, kernels/ucb_score.py, kernels/fedavg.py,
-kernels/flash_attention.py); a CPU
-tensor goes to the plain version (kernels/ref.py).  The bandit round's
+kernels/flash_attention.py, kernels/rg_lru.py); a CPU tensor goes to the
+plain version (kernels/ref.py).  The bandit round's
 kernel updates the state in place and its plain version returns a new one:
 callers use the returned state and treat the one passed in as consumed.
 """
@@ -16,6 +17,7 @@ from repro_torch.kernels import bandit_round as _cuda
 from repro_torch.kernels import fedavg as _fedavg
 from repro_torch.kernels import flash_attention as _flash
 from repro_torch.kernels import ref as _ref
+from repro_torch.kernels import rg_lru as _rg
 from repro_torch.kernels import topk_slots as _topk
 from repro_torch.kernels import ucb_score as _ucb
 
@@ -77,3 +79,10 @@ def flash_attention(q, k, v, causal: bool = True):
     [B, Skv, KV, dh] -> [B, Sq, KV, G, dh] in q's dtype."""
     fn = _flash.flash_attention_cuda if q.is_cuda else _ref.flash_attention_ref
     return fn(q, k, v, causal)
+
+
+def rg_lru_scan(a, b):
+    """The RG-LRU recurrence y_t = a_t * y_{t-1} + b_t (y_{-1} = 0) over
+    ``a``, ``b`` [B, T, W] -> y [B, T, W] in a's dtype, float32 carry."""
+    fn = _rg.rg_lru_scan_cuda if a.is_cuda else _ref.rg_lru_ref
+    return fn(a, b)

@@ -1,7 +1,7 @@
 """Plain PyTorch versions of the port's kernels — the port of
 ``repro.kernels.ref`` (``ucb_scores_ref``, ``truncnorm_times_ref``,
 ``bandit_round_ref``, ``local_topk_ref``, ``segmented_topk_ref``,
-``fedavg_ref``, ``flash_attention_ref``).
+``fedavg_ref``, ``flash_attention_ref``, ``rg_lru_ref``).
 
 They are the CPU path of ``kernels/ops.py`` and the references that the
 CUDA kernels (kernels/csrc/*.cu) are held against on the card: the same
@@ -286,3 +286,23 @@ def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         o = acc / l.clamp_min(1e-30)[..., None]
         out[:, q0:q1] = o.permute(0, 3, 1, 2, 4).to(q.dtype)
     return out
+
+
+def rg_lru_ref(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """The RG-LRU linear recurrence y_t = a_t * y_{t-1} + b_t, y_{-1} = 0,
+    over ``a``, ``b`` [B, T, W] (any T and W) -> y [B, T, W] in a's dtype.
+
+    The plain version of the ``rg_lru_scan`` kernel
+    (kernels/csrc/rg_lru.cu): a sequential loop over T reading a and b as
+    float32, with a float32 carry.  Each step rounds once,
+    ``torch.addcmul(b_t, a_t, h)``, as the kernel's ``__fmaf_rn`` does and
+    as XLA contracts ``a * h + b`` in the JAX package's ``rg_lru_ref``;
+    ``a * h + b`` would round twice.
+    """
+    af, bf = a.float(), b.float()
+    y = torch.empty(a.shape, dtype=torch.float32, device=a.device)
+    h = torch.zeros((a.shape[0], a.shape[2]), dtype=torch.float32,
+                    device=a.device)
+    for t in range(a.shape[1]):
+        h = torch.addcmul(bf[:, t], af[:, t], h, out=y[:, t])
+    return y.to(a.dtype)

@@ -1,8 +1,10 @@
 """Batched inference: prefill + greedy decode for the registry's
-dense archs — the port of ``repro.launch.serve``.
+dense archs and recurrentgemma-9b — the port of ``repro.launch.serve``.
 
   python -m repro_torch.launch.serve --arch smollm-135m --full \\
       --batch 4 --prompt-len 4096 --decode-steps 32
+  python -m repro_torch.launch.serve --arch recurrentgemma-9b --full \\
+      --batch 4 --prompt-len 4096 --decode-steps 16
 
 runs on the card (the default); ``--device cpu`` runs the plain PyTorch
 path on the CPU.  Weights are random, drawn from ``--seed`` (no weights are
@@ -28,9 +30,9 @@ def make_batch(api, rng: np.random.Generator, batch: int, prompt_len: int,
                device=None) -> dict:
     """``{"tokens": [batch, prompt_len] int32}`` of uniform token ids."""
     cfg = api.cfg
-    if cfg.family != "dense":
+    if cfg.family not in ("dense", "griffin"):
         raise NotImplementedError(f"{cfg.family} inputs are not ported yet "
-                                  f"(ROADMAP Queue 1 item 10)")
+                                  f"(ROADMAP Queue 1 item 5)")
     return {"tokens": torch.tensor(
         rng.integers(0, cfg.vocab, (batch, prompt_len)), dtype=torch.int32,
         device=device)}

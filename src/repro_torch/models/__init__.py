@@ -1,2 +1,2 @@
-"""Port of ``repro.models``: the paper's CIFAR CNN and the dense LMs
-(layers, transformer, registry)."""
+"""Port of ``repro.models``: the paper's CIFAR CNN, the dense LMs
+(layers, transformer, registry) and the griffin family (griffin)."""

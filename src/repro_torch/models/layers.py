@@ -221,7 +221,7 @@ def attention_apply(p: dict, x: torch.Tensor, cfg: LMConfig,
     if cross_kv is not None:
         raise NotImplementedError("cross-attention waits for the "
                                   "encoder-decoder family (ROADMAP Queue 1 "
-                                  "item 10)")
+                                  "item 5)")
     b, s, _ = x.shape
     dh, h, kv = cfg.head_dim, cfg.n_heads, cfg.n_kv_heads
     cdt = cfg.compute_dtype
@@ -297,7 +297,7 @@ def mlp_apply(p: dict, x: torch.Tensor, cfg: LMConfig) -> torch.Tensor:
 
 def moe_apply(p: dict, x: torch.Tensor, cfg: LMConfig):
     raise NotImplementedError("the MoE layer waits for the moe family "
-                              "(ROADMAP Queue 1 item 10)")
+                              "(ROADMAP Queue 1 item 5)")
 
 
 # ---------------------------------------------------------------------------

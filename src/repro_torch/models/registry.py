@@ -1,5 +1,5 @@
 """Architecture registry: ``--arch <id>`` -> a uniform :class:`ModelApi` —
-the port of ``repro.models.registry`` for the dense family.
+the port of ``repro.models.registry`` for the dense and griffin families.
 
   init(generator)                         -> params
   forward(params, batch)                  -> (logits, aux)
@@ -8,8 +8,9 @@ the port of ``repro.models.registry`` for the dense family.
   decode_step(params, cache, tokens, pos) -> (logits, cache)
 
 ``ARCH_MODULES`` lists every architecture of the JAX package; only the
-dense ones have configs and model code in the port so far, and building any
-other raises ``NotImplementedError`` naming its ROADMAP item.
+dense ones and recurrentgemma-9b (griffin) have configs and model code in
+the port so far, and building any other raises ``NotImplementedError``
+naming its ROADMAP item.
 """
 
 from __future__ import annotations
@@ -42,7 +43,8 @@ ARCH_FAMILIES = {
     "recurrentgemma-9b": "griffin",
 }
 
-FAMILY_MODULES = {"dense": "repro_torch.models.transformer"}
+FAMILY_MODULES = {"dense": "repro_torch.models.transformer",
+                  "griffin": "repro_torch.models.griffin"}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -64,7 +66,7 @@ def build(arch: str, reduced: bool = False) -> ModelApi:
     if family not in FAMILY_MODULES:
         raise NotImplementedError(
             f"{arch}: the {family} family is not ported yet (ROADMAP Queue 1 "
-            f"item 10)")
+            f"item 5)")
     mod = importlib.import_module(f"repro_torch.configs.{ARCH_MODULES[arch]}")
     cfg: LMConfig = mod.REDUCED if reduced else mod.CONFIG
     fam = importlib.import_module(FAMILY_MODULES[family])

@@ -30,7 +30,7 @@ from repro_torch.models.layers import (LMConfig, attention_apply, embed_apply,
 def _dense_only(cfg: LMConfig) -> None:
     if cfg.family != "dense" or cfg.moe is not None:
         raise NotImplementedError(f"{cfg.name}: the {cfg.family} family is "
-                                  f"not ported yet (ROADMAP Queue 1 item 10)")
+                                  f"not ported yet (ROADMAP Queue 1 item 5)")
 
 
 # ---------------------------------------------------------------------------
