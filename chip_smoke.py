@@ -62,19 +62,24 @@ else.  Phases (every mismatch raises, so any failure exits non-zero):
      K=10^5 (10 of 100 cells, 1000 candidates each) beside phase 5's flat
      rate; paper-baseline (one cell, so the flat path) with
      hierarchy="cells" bitwise equal to the flat sweep.
- 12. the LM slice: the attention kernel against its plain version at
+ 12. the LM slice: the attention kernels against their plain version —
+     the bfloat16 tensor-core kernel (wgmma on TMA-fed K/V tiles) at
      smollm-135m's prefill shapes (B, S, KV, G, dh) = (4, 4096, 3, 3, 64)
-     (bf16 and f32) and (1, 32768, 3, 3, 64) bf16, causal, at qwen3-1.7b's
-     dh = 128 (1, 2048, 8, 2, 128) bf16 causal and full, and ragged (2,
-     1000, 1, 4, 64) f32 (f32 rtol 2e-5 / atol 1e-5, bf16 rtol 1e-2 /
-     atol 1e-4: one bf16 step of the output), timed beside its plain version,
-     scaled_dot_product_attention and its bound; reduced smollm-135m at
-     S = 1024 on the card against the CPU (f32 and bf16: prefill logits,
-     8 decode steps, the KV cache); ``launch/serve.py`` at smollm-135m's
-     full width (4 x 4096 prompt tokens, 32 greedy steps): prefill ms,
-     decode tok/s, peak memory, exactly 30 kernel launches, finite logits,
-     and a profile of one prefill; the diurnal multiplier card against CPU,
-     bitwise.
+     and (1, 32768, 3, 3, 64), causal, at qwen3-1.7b's dh = 128 (1, 2048,
+     8, 2, 128) causal and full, and at ragged shapes for dh 32, 64 and 128,
+     causal and full, Sq and Skv no multiple of its 64-key tile and not
+     always equal; the float32 CUDA-core kernel at (4, 4096, 3, 3, 64) and
+     ragged (2, 1000, 1, 4, 64) (f32 rtol 2e-5 / atol 1e-5, bf16 rtol 1e-2 /
+     atol 1e-4: one bf16 step of the output), each case timed beside its
+     plain version, scaled_dot_product_attention and its bound; reduced
+     smollm-135m at S = 1024 on the card against the CPU (f32 and bf16:
+     prefill logits, 8 decode steps, the KV cache; each prefill launches its
+     dtype's variant once per layer and the other never);
+     ``launch/serve.py`` at smollm-135m's full width (4 x 4096 prompt
+     tokens, 32 greedy steps): prefill ms, decode tok/s, peak memory,
+     exactly 30 launches of the bf16 tensor-core kernel and none of the
+     float32 one, finite logits, and a profile of one prefill; the diurnal
+     multiplier card against CPU, bitwise.
  13. the griffin slice: the RG-LRU scan kernel against its plain version
      at the full-width prefill's (B, T, W) = (4, 4096, 4096) f32, (2, 2048,
      4096) bf16, a long (1, 16384, 4096) f32 and a ragged (3, 1000, 1000)
@@ -131,15 +136,18 @@ KERNELS = {
     "ucb_score": dict(
         replaces="src/repro/kernels/ucb_score.py:39",
         source=CSRC + "ucb_score.cu"),
-    "flash_attention": dict(
+    "flash_attention": dict(           # float32, CUDA cores
         replaces="src/repro/kernels/flash_attention.py:81",
         source=CSRC + "flash_attention.cu"),
+    "flash_attention_wgmma": dict(     # bfloat16, wgmma + TMA (the prefill's)
+        replaces="src/repro/kernels/flash_attention.py:81",
+        source=CSRC + "flash_attention_sm90.cu"),
     "rg_lru_scan": dict(
         replaces="src/repro/kernels/rg_lru.py:49",
         source=CSRC + "rg_lru.cu"),
 }
 SOURCES = ("bandit_round", "fedavg", "topk_slots", "ucb_score",
-           "flash_attention", "rg_lru")
+           "flash_attention", "flash_attention_sm90", "rg_lru")
 N_CNN = 4_583_146              # parameters of the paper CNN
 FEDAVG_CASES = [(1, 5, N_CNN), (1, 100, N_CNN), (2, 5, N_CNN), (1, 3, 1),
                 (1, 10, 8192 * 3 + 17)]
@@ -1317,15 +1325,29 @@ def phase_hierarchy() -> None:
 # ---------------------------------------------------------------------------
 
 BF16_TC_OPS_PER_S = 989e12     # H100 SXM bf16 dense tensor-core rate
-# (B, Sq, KV, G, dh, causal, dtype): smollm-135m's prefill shapes (the main
-# path's first), the main path's shape once more in float32, qwen3-1.7b's
-# head width, and a ragged f32 case
-FLASH_CASES = [(4, 4096, 3, 3, 64, True, "bfloat16"),
-               (4, 4096, 3, 3, 64, True, "float32"),
-               (1, 32768, 3, 3, 64, True, "bfloat16"),
-               (1, 2048, 8, 2, 128, True, "bfloat16"),
-               (1, 2048, 8, 2, 128, False, "bfloat16"),
-               (2, 1000, 1, 4, 64, True, "float32")]
+# (B, Sq, Skv, KV, G, dh, causal, dtype): smollm-135m's prefill shapes (the
+# main path's first), the main path's shape once more in float32,
+# qwen3-1.7b's head width, a ragged f32 case, and ragged bfloat16 cases for
+# every head width the tensor-core kernel takes, causal and full, Sq and Skv
+# no multiple of 64 (its key tile) and not always equal
+FLASH_CASES = [(4, 4096, 4096, 3, 3, 64, True, "bfloat16"),
+               (4, 4096, 4096, 3, 3, 64, True, "float32"),
+               (1, 32768, 32768, 3, 3, 64, True, "bfloat16"),
+               (1, 2048, 2048, 8, 2, 128, True, "bfloat16"),
+               (1, 2048, 2048, 8, 2, 128, False, "bfloat16"),
+               (2, 1000, 1000, 1, 4, 64, True, "float32"),
+               (2, 1000, 1000, 1, 4, 64, True, "bfloat16"),
+               (2, 1000, 777, 1, 4, 64, False, "bfloat16"),
+               (1, 1000, 600, 2, 3, 64, True, "bfloat16"),
+               (1, 1500, 1500, 2, 3, 32, True, "bfloat16"),
+               (1, 1100, 1300, 2, 3, 32, False, "bfloat16"),
+               (2, 333, 333, 1, 3, 128, True, "bfloat16"),
+               (1, 700, 900, 2, 2, 128, True, "bfloat16"),
+               (1, 900, 700, 2, 2, 128, False, "bfloat16")]
+# the variant each dtype launches, and the kernel name torch.profiler shows
+FLASH_VARIANT = {"float32": ("flash_attention", "flash_attention_kernel"),
+                 "bfloat16": ("flash_attention_wgmma",
+                              "flash_attention_wgmma_kernel")}
 # kernel against its plain version.  float32: the JAX package's tolerance
 # for its kernel (tests/test_kernels.py); both accumulate in float32 in
 # other orders.  bfloat16: both compute in float32 and round once to
@@ -1349,16 +1371,20 @@ SERVE_ARGS = ["--arch", "smollm-135m", "--full", "--batch", "4",
               "--prompt-len", "4096", "--decode-steps", "32"]
 
 
-def flash_bound(b, s, kv, g, dh, causal, itemsize):
-    """Least time (ms) of one self-attention forward over S positions: 4·dh
-    float operations per (query row, visible key) pair — the lower triangle
-    when causal — over the type's peak (bf16 tensor cores, or float32
-    outside them), against q and k, v read once and the output written once
-    over the memory rate."""
-    pairs = s * (s + 1) // 2 if causal else s * s
+def flash_bound(b, sq, skv, kv, g, dh, causal, itemsize):
+    """Least time (ms) of one attention forward: 4·dh float operations per
+    (query row, visible key) pair — the keys j <= i when causal — over the
+    type's peak (bf16 tensor cores, or float32 outside them), against q
+    and the output (Sq rows) and k, v (Skv rows) moved once over the memory
+    rate."""
+    if causal:
+        n = min(sq, skv)
+        pairs = n * (n + 1) // 2 + (sq - n) * skv
+    else:
+        pairs = sq * skv
     ops = 4 * b * kv * g * pairs * dh
     rate = BF16_TC_OPS_PER_S if itemsize == 2 else FP32_OPS_PER_S
-    nbytes = itemsize * (2 * b * s * kv * g * dh + 2 * b * s * kv * dh)
+    nbytes = itemsize * (2 * b * sq * kv * g * dh + 2 * b * skv * kv * dh)
     t_ops, t_bytes = ops / rate * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
@@ -1370,46 +1396,48 @@ def phase_flash_kernel(results: dict) -> None:
     from repro_torch.kernels import ref
     gen = torch.Generator(device="cuda")
     gen.manual_seed(12)
-    worst = 0.0
-    for b, sq, kv, g, dh, causal, dtype in FLASH_CASES:
+    for b, sq, skv, kv, g, dh, causal, dtype in FLASH_CASES:
+        name, kernel = FLASH_VARIANT[dtype]
         dt = getattr(torch, dtype)
         q, k, v = (torch.randn(shape, generator=gen, device="cuda").to(dt)
-                   for shape in ((b, sq, kv, g, dh), (b, sq, kv, dh),
-                                 (b, sq, kv, dh)))
+                   for shape in ((b, sq, kv, g, dh), (b, skv, kv, dh),
+                                 (b, skv, kv, dh)))
+        before = cuda_flash.launch_counts[name]
         got = cuda_flash.flash_attention_cuda(q, k, v, causal)
+        if cuda_flash.launch_counts[name] != before + 1:
+            raise AssertionError(f"[12] {dtype} input did not launch {name}")
         want = ref.flash_attention_ref(q, k, v, causal)
         torch.cuda.synchronize()
         err = (got.float() - want.float()).abs().max().item()
-        where = (f"flash_attention (B, S, KV, G, dh)=({b}, {sq}, {kv}, {g}, "
-                 f"{dh}) {'causal' if causal else 'full'} {dtype}")
+        where = (f"{name} (B, Sq, Skv, KV, G, dh)=({b}, {sq}, {skv}, {kv}, "
+                 f"{g}, {dh}) {'causal' if causal else 'full'} {dtype}")
         torch.testing.assert_close(got, want, **FLASH_TOL[dtype],
                                    msg=f"[12] {where}: kernel differs from "
                                        f"the plain version")
-        worst = max(worst, err)
-        n = 1 if b * sq * sq > 2 ** 28 else 5          # calls per timing
+        res = results[name]
+        res["max_abs_err"] = max(res.get("max_abs_err") or 0.0, err)
+        n = 1 if b * sq * skv > 2 ** 28 else 5          # calls per timing
         def launch():
             return cuda_flash.flash_attention_cuda(q, k, v, causal)
         ms = time_ms(launch, n)
-        dev_ms = profiled_kernel_ms(launch, max(n, 3),
-                                    "flash_attention_kernel")
+        dev_ms = profiled_kernel_ms(launch, max(n, 3), kernel)
         pms = time_ms(lambda: ref.flash_attention_ref(q, k, v, causal), 1)
         # SDPA's layout: [B, heads, S, dh], query head i on kv head i // G
         qs = q.permute(0, 2, 3, 1, 4).reshape(b, kv * g, sq, dh).contiguous()
         ks, vs = (x.permute(0, 2, 1, 3).contiguous() for x in (k, v))
         lms = time_ms(lambda: F.scaled_dot_product_attention(
             qs, ks, vs, is_causal=causal, enable_gqa=True), n)
-        bms, by = flash_bound(b, sq, kv, g, dh, causal, q.element_size())
+        bms, by = flash_bound(b, sq, skv, kv, g, dh, causal,
+                              q.element_size())
         log(f"[12] {where}: max abs err {err:.3g} (rtol/atol "
             f"{FLASH_TOL[dtype]['rtol']}/{FLASH_TOL[dtype]['atol']}); kernel "
             f"{ms:.4f} ms (device time by torch.profiler "
             f"{'none' if dev_ms is None else f'{dev_ms:.4f}'} ms), plain "
             f"{pms:.4f} ms, SDPA {lms:.4f} ms, bound {bms:.4f} ms ({by}), "
             f"{100 * bms / ms:.2f}% of bound")
-        if (b, sq, kv, g, dh, causal, dtype) == FLASH_CASES[0]:
-            results["flash_attention"].update(
-                ms=ms, plain_ms=pms, library_ms=lms, bound_ms=bms,
-                bound_by=by, shape=dict(b=b, s=sq, kv=kv, g=g, dh=dh))
-    results["flash_attention"]["max_abs_err"] = worst
+        if (b, sq, kv, g, dh, causal) == (4, 4096, 3, 3, 64, True):
+            res.update(ms=ms, plain_ms=pms, library_ms=lms, bound_ms=bms,
+                       bound_by=by, shape=dict(b=b, s=sq, kv=kv, g=g, dh=dh))
 
 
 def _to(tree, device):
@@ -1430,10 +1458,12 @@ def greedy_picks(logits_c, logits_h, atol: float, where: str):
     return tok, int((mine == tok).all())
 
 
-def phase_lm_card_vs_cpu() -> None:
+def phase_lm_card_vs_cpu(results: dict) -> None:
     """Reduced smollm-135m at S = 1024 (the kernel route) on the card and on
     the CPU from the same parameters and prompts: prefill logits, 8 decode
-    steps fed the CPU's greedy tokens, and the KV cache."""
+    steps fed the CPU's greedy tokens, and the KV cache.  Each prefill
+    launches its dtype's attention variant once per layer and the other
+    never; the float32 prefill is the float32 kernel's path."""
     import dataclasses
 
     from repro_torch.configs import smollm_135m
@@ -1455,11 +1485,16 @@ def phase_lm_card_vs_cpu() -> None:
                 card_params, _to(batch, "cuda"), cfg, max_len=1024 + 8)
             logits_h, cache_h, _ = transformer.prefill(cpu_params, batch, cfg,
                                                        max_len=1024 + 8)
-            launched = cuda_flash.launch_counts["flash_attention"]
-            if launched != cfg.n_layers:
-                raise AssertionError(f"[12] reduced prefill launched the "
-                                     f"kernel {launched} times, not "
-                                     f"{cfg.n_layers}")
+            name = FLASH_VARIANT[dtype][0]
+            want = {k: (cfg.n_layers if k == name else 0)
+                    for k in cuda_flash.launch_counts}
+            if cuda_flash.launch_counts != want:
+                raise AssertionError(f"[12] reduced {dtype} prefill launched "
+                                     f"{cuda_flash.launch_counts}, not "
+                                     f"{want}")
+            launched = cuda_flash.launch_counts[name]
+            if dtype == "float32":
+                results[name]["launches"] = launched
             torch.testing.assert_close(logits_c.cpu(), logits_h, **tol,
                                        msg=f"[12] {dtype} prefill logits")
             worst = (logits_c.cpu().float() - logits_h.float()).abs().max()
@@ -1482,12 +1517,12 @@ def phase_lm_card_vs_cpu() -> None:
         log(f"[12] reduced smollm-135m, S=1024, {dtype}: card equals CPU "
             f"within rtol/atol {tol['rtol']}/{tol['atol']} (max abs logit "
             f"err {float(worst):.3g}), greedy tokens equal in {same}/8 "
-            f"steps, KV cache within atol {ctol['atol']}; kernel launches "
+            f"steps, KV cache within atol {ctol['atol']}; {name} launches "
             f"{launched}")
 
 
-def profile_device(label: str, fn, steps: int = 1, tag: str = "12p",
-                   kernel: str = "flash_attention_kernel") -> None:
+def profile_device(label: str, fn, steps: int = 1, tag: str = "12p", *,
+                   kernel: str) -> None:
     """Where ``steps`` warm calls of ``fn`` spend their time (torch.profiler):
     wall time per call, device busy share (the part of it in device kernels
     whose name holds ``kernel``), device kernels per call and the top
@@ -1517,26 +1552,29 @@ def profile_device(label: str, fn, steps: int = 1, tag: str = "12p",
 
 
 def phase_serve(results: dict) -> None:
-    """``launch/serve.py``'s main at smollm-135m's full width: one prefill
-    of 4 x 4096 tokens must launch the attention kernel once per layer."""
+    """``launch/serve.py``'s main at smollm-135m's full width: one bfloat16
+    prefill of 4 x 4096 tokens must launch the tensor-core attention kernel
+    once per layer and the float32 one never."""
     from repro_torch.launch import serve
     from repro_torch.models.registry import build
     reset_counts()
     torch.cuda.reset_peak_memory_stats()
     out = serve.main(SERVE_ARGS)
-    counts = check_launches("12", {"flash_attention": 30})
+    counts = check_launches("12", {"flash_attention_wgmma": 30})
     peak = torch.cuda.max_memory_allocated() / 2**30
     for name in ("prefill_logits", "logits"):
         if not bool(torch.isfinite(out[name]).all()):
             raise AssertionError(f"[12] serve: {name} not finite")
     if out["tokens"].shape != (4, 33):
         raise AssertionError(f"[12] serve: tokens {out['tokens'].shape}")
-    results["flash_attention"]["launches"] = counts["flash_attention"]
+    results["flash_attention_wgmma"]["launches"] = (
+        counts["flash_attention_wgmma"])
     log(f"[12] serve smollm-135m full width, batch 4, prompt 4096, 32 "
         f"decode steps: prefill {out['prefill_ms']:.1f} ms, decode "
         f"{out['tok_per_s']:.1f} tok/s ({out['decode_s'] * 1e3:.1f} ms), "
-        f"peak device memory {peak:.2f} GiB; attention kernel launches "
-        f"{counts['flash_attention']} (one per layer); logits finite")
+        f"peak device memory {peak:.2f} GiB; tensor-core attention kernel "
+        f"launches {counts['flash_attention_wgmma']} (one per layer), float32 "
+        f"kernel {counts['flash_attention']}; logits finite")
     api = build("smollm-135m", reduced=False)
     gen = torch.Generator(device="cuda")
     gen.manual_seed(0)
@@ -1547,9 +1585,11 @@ def phase_serve(results: dict) -> None:
         logits, cache, pos = api.prefill(params, batch, max_len=max_len)
         tok = logits[:, -1].argmax(-1).to(torch.int32)
     profile_device("full-width prefill (4 x 4096)",
-                   lambda: api.prefill(params, batch, max_len=max_len))
+                   lambda: api.prefill(params, batch, max_len=max_len),
+                   kernel="flash_attention_wgmma")
     profile_device("full-width decode step (batch 4, cache 4128)",
-                   lambda: api.decode_step(params, cache, tok, pos), steps=4)
+                   lambda: api.decode_step(params, cache, tok, pos), steps=4,
+                   kernel="flash_attention_wgmma")
 
 
 def phase_diurnal() -> None:
@@ -1572,7 +1612,7 @@ def phase_diurnal() -> None:
 def phase_lm(results: dict) -> None:
     t0 = time.perf_counter()
     phase_flash_kernel(results)
-    phase_lm_card_vs_cpu()
+    phase_lm_card_vs_cpu(results)
     phase_serve(results)
     phase_diurnal()
     log(f"[12] phase time {time.perf_counter() - t0:.1f} s")
@@ -1766,7 +1806,8 @@ def phase_griffin_serve(results: dict) -> None:
         f"{out['tok_per_s']:.1f} tok/s ({out['decode_s'] * 1e3:.1f} ms), "
         f"peak device memory {peak:.2f} GiB; scan kernel launches "
         f"{counts['rg_lru_scan']} (one per recurrent layer), attention "
-        f"kernel launches {counts['flash_attention']}; logits finite")
+        f"kernel launches {counts['flash_attention']} (float32) and "
+        f"{counts['flash_attention_wgmma']} (bfloat16); logits finite")
     del out
     api = build("recurrentgemma-9b", reduced=False)
     gen = torch.Generator(device="cuda")

@@ -1,19 +1,26 @@
-"""ctypes wrapper of the hand-written CUDA attention forward
-(kernels/csrc/flash_attention.cu) — the counterpart of the JAX package's
-Pallas kernel ``repro.kernels.flash_attention.flash_attention_fwd``.
+"""ctypes wrapper of the hand-written CUDA attention forward — the
+counterpart of the JAX package's Pallas kernel
+``repro.kernels.flash_attention.flash_attention_fwd``, in two variants
+chosen by dtype:
+
+- bfloat16 (the LM prefill's path): kernels/csrc/flash_attention_sm90.cu,
+  wgmma on the tensor cores with K/V tiles brought by TMA; launches counted
+  as ``flash_attention_wgmma``;
+- float32: kernels/csrc/flash_attention.cu, FMAs on the CUDA cores (TF32
+  would not hold the float32 tolerance); counted as ``flash_attention``.
 
 One launch computes causal (or full) grouped-query attention in the JAX
-layout: ``q`` [B, Sq, KV, G, dh], ``k``/``v`` [B, Skv, KV, dh], float32 or
-bfloat16, dh in {32, 64, 128} -> [B, Sq, KV, G, dh] in q's dtype.  The
-wrapper checks device, dtype, shape and contiguity, allocates the output,
-launches on PyTorch's current stream and raises if the launch fails.  It
-takes CUDA tensors only; the plain version is
-``kernels/ref.flash_attention_ref``, and kernels/ops.py routes between the
-two by device.
+layout: ``q`` [B, Sq, KV, G, dh], ``k``/``v`` [B, Skv, KV, dh], dh in
+{32, 64, 128} -> [B, Sq, KV, G, dh] in q's dtype.  The wrapper checks
+device, dtype, shape, contiguity and (bfloat16) 16-byte alignment,
+allocates the output, launches on PyTorch's current stream and raises if
+the launch fails; nothing falls back to the other variant.  It takes CUDA
+tensors only; the plain version is ``kernels/ref.flash_attention_ref``, and
+kernels/ops.py routes between the two by device.
 
-``launch_counts`` counts the launches (reset it with
-:func:`reset_launch_counts`), so a run can show that it went through the
-kernel.
+``launch_counts`` counts the launches of each variant (reset it with
+:func:`reset_launch_counts`), so a run can show which kernel it went
+through.
 """
 
 from __future__ import annotations
@@ -24,23 +31,32 @@ import torch
 
 from repro_torch.kernels import _build
 
-launch_counts = {"flash_attention": 0}
+launch_counts = {"flash_attention": 0, "flash_attention_wgmma": 0}
 HEAD_DIMS = (32, 64, 128)
+# dtype -> (source under kernels/csrc/, launch-count name)
+VARIANTS = {torch.float32: ("flash_attention", "flash_attention"),
+            torch.bfloat16: ("flash_attention_sm90", "flash_attention_wgmma")}
+# (position, head) rows a block of the bf16 kernel takes at dh 128 (192 at
+# smaller dh); its grid may hold at most 65535 such row tiles
+WGMMA_ROWS = 128
 
 
 def reset_launch_counts() -> None:
-    launch_counts["flash_attention"] = 0
+    for name in launch_counts:
+        launch_counts[name] = 0
 
 
-def _lib():
-    lib = _build.load("flash_attention")
+def _launcher(source: str):
+    """The C entry point ``<source>_launch`` of the library built from
+    ``csrc/<source>.cu``; both variants take the same arguments."""
+    lib = _build.load(source)
+    fn = getattr(lib, f"{source}_launch")
     if not getattr(lib, "_repro_ready", False):
-        lib.flash_attention_launch.argtypes = (
-            [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7
-            + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
-        lib.flash_attention_launch.restype = ctypes.c_int
+        fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 7
+                       + [ctypes.c_float, ctypes.c_void_p])
+        fn.restype = ctypes.c_int
         lib._repro_ready = True
-    return lib
+    return fn
 
 
 def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -69,16 +85,22 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError("q, k and v must be contiguous")
     if dh not in HEAD_DIMS:
         raise ValueError(f"head width {dh} not in {HEAD_DIMS}")
-    if min(b, sq, skv, kv, g) < 1 or b * kv > 65535 or sq * g >= 2 ** 31:
+    wgmma = q.dtype == torch.bfloat16
+    grid_ok = (-(-sq * g // WGMMA_ROWS) <= 65535 and b * kv < 2 ** 31
+               if wgmma else b * kv <= 65535 and sq * g < 2 ** 31)
+    if min(b, sq, skv, kv, g) < 1 or not grid_ok:
         raise ValueError(f"sizes out of range: B={b}, Sq={sq}, Skv={skv}, "
                          f"KV={kv}, G={g}")
     out = torch.empty_like(q)
-    err = _lib().flash_attention_launch(
+    if wgmma and any(x.data_ptr() % 16 for x in (q, k, v, out)):
+        raise ValueError("the bfloat16 kernel needs 16-byte aligned q, k "
+                         "and v (TMA and 16-byte loads)")
+    source, name = VARIANTS[q.dtype]
+    err = _launcher(source)(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, sq, skv,
-        kv, g, dh, int(causal), dh ** -0.5, int(q.dtype == torch.bfloat16),
+        kv, g, dh, int(causal), dh ** -0.5,
         torch.cuda.current_stream(q.device).cuda_stream)
     if err != 0:
-        raise RuntimeError(f"flash_attention kernel launch failed: CUDA "
-                           f"error {err}")
-    launch_counts["flash_attention"] += 1
+        raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
+    launch_counts[name] += 1
     return out

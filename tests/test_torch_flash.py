@@ -8,6 +8,11 @@ Tolerances are the JAX package's own for this kernel
 (tests/test_kernels.py): float32 rtol 2e-5 / atol 1e-5 (both sides
 accumulate in float32, in other orders); bfloat16 rtol 2e-2 / atol 2e-2
 (the output is rounded to bfloat16, one ulp is 2**-8 relative).
+
+The bfloat16 tensor-core kernel (kernels/csrc/flash_attention_sm90.cu)
+runs only on the card; its arithmetic is emulated here in plain torch and
+held against the plain version under chip_smoke.py's bfloat16 gate (rtol
+1e-2 / atol 1e-4).
 """
 
 import numpy as np
@@ -107,3 +112,70 @@ def test_kernel_wrapper_refuses_cpu_tensors():
     (q, k, v), _ = _inputs(5, 1, 16, 16, 1, 2, 64, "float32")
     with pytest.raises(ValueError, match="CUDA tensors"):
         tflash.flash_attention_cuda(q, k, v)
+
+
+LOG2E = 1.4426950408889634
+# chip_smoke.py's bfloat16 gate of the kernel against its plain version
+FLASH_TOL_BF16 = dict(rtol=1e-2, atol=1e-4)
+
+
+def _emulate_wgmma_kernel(q, k, v, causal, bn, split_p=True):
+    """The arithmetic of kernels/csrc/flash_attention_sm90.cu in plain torch:
+    float32 logits of the bfloat16 values (their products are exact in
+    float32), ``exp2`` with dh**-0.5 * log2(e) folded into one multiply,
+    P.V with P as hi = bf16(p) plus lo = bf16(p - hi) (or, with
+    ``split_p=False``, one bf16 rounding of p), l summed from the float32
+    p, over key tiles of ``bn``; the output acc / max(l, 1e-30) rounded
+    once to bfloat16."""
+    b, sq, kv, g, dh = q.shape
+    skv = k.shape[1]
+    c = torch.tensor(dh ** -0.5, dtype=torch.float32) * LOG2E
+    qf = q.float().permute(0, 2, 1, 3, 4).reshape(b, kv, sq * g, dh)
+    kf = k.float().permute(0, 2, 1, 3)                      # [B, KV, Skv, dh]
+    vf = v.float().permute(0, 2, 1, 3)
+    pos = torch.arange(sq * g) // g
+    m = torch.full((b, kv, sq * g), ref.NEG_LOGIT)
+    l = torch.zeros(b, kv, sq * g)
+    acc = torch.zeros(b, kv, sq * g, dh)
+    for k0 in range(0, skv, bn):
+        keys = torch.arange(k0, min(k0 + bn, skv))
+        x = (qf @ kf[:, :, keys].transpose(-1, -2)) * c
+        if causal:
+            x = torch.where(keys[None, :] <= pos[:, None], x, ref.NEG_LOGIT)
+        m_new = torch.maximum(m, x.amax(-1))
+        corr = torch.exp2(m - m_new)
+        p = torch.exp2(x - m_new[..., None])
+        l = l * corr + p.sum(-1)
+        hi = p.bfloat16().float()
+        lo = (p - hi).bfloat16().float() if split_p else torch.zeros_like(p)
+        acc = acc * corr[..., None] + hi @ vf[:, :, keys] + lo @ vf[:, :, keys]
+        m = m_new
+    o = (acc / l.clamp_min(1e-30)[..., None]).reshape(b, kv, sq, g, dh)
+    return o.permute(0, 2, 1, 3, 4).bfloat16()
+
+
+@pytest.mark.parametrize("b,s,kv,g,dh,causal", [
+    (1, 1024, 1, 3, 64, True), (1, 1024, 1, 3, 64, False),
+    (1, 300, 2, 2, 32, False), (2, 333, 1, 3, 128, True)],
+    ids=["dh64-causal", "dh64-full", "dh32-ragged-full", "dh128-ragged"])
+def test_wgmma_kernel_arithmetic_within_the_bf16_gate(b, s, kv, g, dh,
+                                                      causal):
+    """The bf16 tensor-core kernel's arithmetic (emulated above: bf16
+    logits' products, exp2 with the folded scale, P split into hi + lo)
+    holds chip_smoke.py's bfloat16 gate against the plain version, at the
+    kernel's key tile (128 keys, 64 at dh 128)."""
+    (q, k, v), _ = _inputs(s + dh, b, s, s, kv, g, dh, "bfloat16")
+    bn = 64 if dh == 128 else 128
+    got = _emulate_wgmma_kernel(q, k, v, causal, bn)
+    want = ref.flash_attention_ref(q, k, v, causal)
+    torch.testing.assert_close(got, want, **FLASH_TOL_BF16)
+
+
+def test_one_bf16_rounding_of_p_breaks_the_bf16_gate():
+    """Why the kernel splits P: with p rounded to one bfloat16 before P.V,
+    outputs near 0 leave the gate (they are protected by atol 1e-4 only)."""
+    (q, k, v), _ = _inputs(1088, 1, 1024, 1024, 1, 3, 64, "bfloat16")
+    got = _emulate_wgmma_kernel(q, k, v, True, 128, split_p=False)
+    want = ref.flash_attention_ref(q, k, v, True)
+    bad = ~torch.isclose(got.float(), want.float(), **FLASH_TOL_BF16)
+    assert int(bad.sum()) > 1000
