@@ -9,12 +9,17 @@ else.  Phases (every mismatch raises, so any failure exits non-zero):
   1. the card's name and power limit; build the CUDA kernels.
   2. each kernel against its plain PyTorch version on the card: both
      variants x 8 policies x deadline off/on, at K=100 (S=5) and K=10^4
-     (S=5, S=50) with G=4 grid points, and at the shapes of the sweeps
-     below: the legacy kernel at G=24, K=100; the sampled kernel at G=8,
-     K=10^4 and at ``metro-congestion``'s G=1, K=10^5, C=10^4 with the
-     per-cell congestion multiplier on the mean throughput.  States are
-     warmed by 20 plain rounds.  Selections and flags exact; state and
-     round times within rtol 1e-6.
+     (S=5, S=50) with G=4 grid points, at the shapes of the sweeps below
+     (the legacy kernel at G=24, K=100; the sampled kernel at G=8, K=10^4
+     and at ``metro-congestion``'s G=1, K=10^5, C=10^4 with the per-cell
+     congestion multiplier on the mean throughput), at K = 999 (C = 100,
+     G=3) and at the kernel's shape boundaries C = 255, 256, 257, 1025
+     (K=10^4, S=5 and S=50).  States are warmed by 20 plain rounds.
+     Selections and flags exact; state and round times within rtol 1e-6.
+     The [t] lines time each kernel at its sweep's shape and at S=50, the
+     shape boundaries and metro-congestion's C=10^4 (CUDA events and
+     torch.profiler's device time, beside the plain version and the
+     bound).
   3. ``sweep("paper-baseline")`` at K=100: 8 policies x eta (1.0, 1.5, 1.9)
      x 8 seeds x 500 rounds through the legacy kernel, plus a small run
      fed the same draws on the card and on the CPU (plain path), which must
@@ -25,9 +30,14 @@ else.  Phases (every mismatch raises, so any failure exits non-zero):
      seed x 100 rounds.
   6. the FedAvg-combine kernel against its plain version on the card, f32
      and bf16, at (G, C, N) = (1, 5, N_cnn), (1, 100, N_cnn), (2, 5, N_cnn),
-     (1, 3, 1) and (1, 10, 24593) with some zero weights (N_cnn = 4,583,146,
-     the paper CNN): max abs error 0; the aggregation guard around it on a
-     NaN row and a huge-norm row against the plain path on the CPU.
+     (1, 3, 1), (1, 10, 24593) and, with G=3, N = 1, 3, 5, 7 (mod 8), with
+     some zero weights (N_cnn = 4,583,146, the paper CNN), and on tensors
+     whose data pointer is one element off 16 bytes: max abs error 0
+     (torch.equal); at N_cnn timed (CUDA events and torch.profiler's
+     device time) beside the plain version, the bound and one library
+     call (f32 einsum; bf16 a matmul of the bf16 rows by the weights
+     rounded to bf16, fp32 accumulation); the aggregation guard around it
+     on a NaN row and a huge-norm row against the plain path on the CPU.
   7. the learning-coupled rounds on the card (both kernels, cuDNN conv, TF32
      off) against the CPU (plain path) on the same CPU-made draws, at a
      small CNN with BatchNorm off and on: selections exact, round times
@@ -97,7 +107,8 @@ Launch counts are zeroed before each sweep and read after it; each sweep
 must launch its kernels once per (policy, round) (the local top-S once per
 round of a score policy) and no other kernel.  The second-to-last line
 is a JSON object with each kernel's launches, error against the plain
-version and times; the last line is the device summary.
+version and times (CUDA events, and torch.profiler's device time where
+it recorded the kernel); the last line is the device summary.
 """
 
 from __future__ import annotations
@@ -150,7 +161,13 @@ SOURCES = ("bandit_round", "fedavg", "topk_slots", "ucb_score",
            "flash_attention", "flash_attention_sm90", "rg_lru")
 N_CNN = 4_583_146              # parameters of the paper CNN
 FEDAVG_CASES = [(1, 5, N_CNN), (1, 100, N_CNN), (2, 5, N_CNN), (1, 3, 1),
-                (1, 10, 8192 * 3 + 17)]
+                (1, 10, 8192 * 3 + 17), (3, 5, 8 * 4001 + 1),
+                (3, 3, 8 * 3000 + 3), (3, 7, 8 * 2345 + 5),
+                (3, 100, 8 * 1111 + 7)]
+# cases whose data pointer is one element past a 16-byte boundary (a view
+# of a larger buffer): the kernel's bulk copies must clamp the tensor's head
+FEDAVG_OFFSET_CASES = [(1, 5, 8 * 3001 + 1), (2, 3, 1), (3, 4, 8 * 513 + 6),
+                       (1, 17, 8 * 1001 + 3)]
 # the small CNN of phase 7 and of tests/test_torch_fl_engine.py
 SMALL_CNN = dict(image_size=8, channels=(8, 8), pool_after=(0,),
                  fc_units=(16,))
@@ -165,16 +182,39 @@ CARD_VS_CPU_RL2 = {False: 1e-5, True: 1e-4}
 # ~15 s with the all-K cohort
 FL_ROUNDS = {"selected": 2, "all": 2, "flaky": 3}
 
-# phase 2's cases, (scenario, G, K, S) by kernel; the last ones are the
-# shapes at which phases 3-5 drive each kernel
+# the round kernel's shape boundaries: about C / 4 threads in whole warps
+# select (C = 256 fills two warps, 257 starts a third) and a block has at
+# most 1024 threads, past which (C = 1025) each gathers two candidates
+ROUND_EDGES = [(c, s) for c in (255, 256, 257, 1025) for s in (5, 50)]
+# phase 2's cases, (scenario, G, K, S, C) by kernel: the sweeps' shapes
+# (phases 3-5 drive each kernel at G=24, K=100 and G=8, K=10^4 and at
+# metro-congestion's), K = 999 (the decay pass without float4s), then the
+# block-size boundaries
 PHASE2_CASES = {
     "bandit_round": [
-        ("paper-baseline", 4, 100, 5), ("paper-baseline", 4, 10_000, 5),
-        ("paper-baseline", 4, 10_000, 50), ("paper-baseline", 24, 100, 5)],
+        ("paper-baseline", 4, 100, 5, 10),
+        ("paper-baseline", 4, 10_000, 5, 1_000),
+        ("paper-baseline", 4, 10_000, 50, 1_000),
+        ("paper-baseline", 24, 100, 5, 10),
+        ("paper-baseline", 3, 999, 5, 100)]
+    + [("paper-baseline", 4, 10_000, s, c) for c, s in ROUND_EDGES],
     "bandit_round_sampled": [
-        ("paper-baseline", 4, 100, 5), ("paper-baseline", 4, 10_000, 5),
-        ("paper-baseline", 4, 10_000, 50), ("paper-baseline", 8, 10_000, 5),
-        ("metro-congestion", 1, 100_000, 5)],
+        ("paper-baseline", 4, 100, 5, 10),
+        ("paper-baseline", 4, 10_000, 5, 1_000),
+        ("paper-baseline", 4, 10_000, 50, 1_000),
+        ("paper-baseline", 8, 10_000, 5, 1_000),
+        ("metro-congestion", 1, 100_000, 5, 10_000),
+        ("paper-baseline", 3, 999, 5, 100)]
+    + [("paper-baseline", 4, 10_000, s, c) for c, s in ROUND_EDGES],
+}
+# further [t] shapes beside the main paths', (scenario, G, K, C, S): S = 50,
+# the block-size boundaries and metro-congestion's C = 10^4
+KERNEL_TIME_CASES = {
+    "bandit_round": [("paper-baseline", 24, 100, 10, 50)]
+    + [("paper-baseline", 8, 10_000, c, s) for c, s in ROUND_EDGES],
+    "bandit_round_sampled": [("paper-baseline", 8, 10_000, 1_000, 50),
+                             ("metro-congestion", 1, 100_000, 10_000, 5)]
+    + [("paper-baseline", 8, 10_000, c, s) for c, s in ROUND_EDGES],
 }
 
 
@@ -382,8 +422,7 @@ def phase_kernels(results: dict) -> None:
         plain = (ref.bandit_round_sampled_ref if sampled
                  else ref.bandit_round_ref)
         worst = 0.0
-        for scen_name, g, k, s in PHASE2_CASES[name]:
-            c = math.ceil(0.1 * k)
+        for scen_name, g, k, s, c in PHASE2_CASES[name]:
             scen = get_scenario(scen_name)
             env = EnvArrays.from_scenario(
                 scen, scen.build_env(k, np.random.default_rng(0)), dev)
@@ -419,9 +458,13 @@ def phase_kernels(results: dict) -> None:
         log(f"[2] {name}: all cases match (max abs err {worst:g})")
 
 
-def kernel_times(results: dict, name: str, g: int, k: int, s: int) -> None:
-    """Kernel, plain and bound times at a sweep's shape (mean over the 8
-    policies, which the sweep launches equally often)."""
+def kernel_times(results: dict, name: str, g: int, k: int, s: int,
+                 c: int | None = None, scen_name: str = "paper-baseline",
+                 record: bool = True) -> None:
+    """Kernel (CUDA events and the profiler's device time), plain and bound
+    times at a shape (mean over the 8 policies, which a sweep launches
+    equally often); ``record`` keeps them as the kernel's results (the main
+    path's shape).  C defaults to the sweeps' 10 % of K."""
     from repro_torch.core import bandit
     from repro_torch.kernels import bandit_round as cuda_round
     from repro_torch.kernels import ref
@@ -431,8 +474,8 @@ def kernel_times(results: dict, name: str, g: int, k: int, s: int) -> None:
     sampled = name == "bandit_round_sampled"
     plain = ref.bandit_round_sampled_ref if sampled else ref.bandit_round_ref
     dev = torch.device("cuda")
-    c = math.ceil(0.1 * k)
-    scen = get_scenario("paper-baseline")
+    c = math.ceil(0.1 * k) if c is None else c
+    scen = get_scenario(scen_name)
     env = EnvArrays.from_scenario(
         scen, scen.build_env(k, np.random.default_rng(0)), dev)
     ms, pms, prof, bms, by = [], [], [], [], set()
@@ -453,17 +496,31 @@ def kernel_times(results: dict, name: str, g: int, k: int, s: int) -> None:
         b, why = bound(policy, g, k, c, s, sampled, False)
         bms.append(b)
         by.add(why)
-    r = results[name]
-    r.update(ms=statistics.fmean(ms), plain_ms=statistics.fmean(pms),
+    seen = [m for m in prof if m is not None]
+    r = dict(ms=statistics.fmean(ms), plain_ms=statistics.fmean(pms),
+             device_ms=(statistics.fmean(seen) if len(seen) == len(prof)
+                        else None),
              bound_ms=statistics.fmean(bms), bound_by="/".join(sorted(by)),
              shape=dict(g=g, k=k, c=c, s=s))
-    log(f"[t] {name} at G={g} K={k} C={c} S={s}: kernel "
-        f"{r['ms']:.4f} ms, plain {r['plain_ms']:.3f} ms, bound "
+    if record:
+        results[name].update(r)
+    where = f"{name} {scen_name} G={g} K={k} C={c} S={s}"
+    dev_txt = "none" if r["device_ms"] is None else f"{r['device_ms']:.4f}"
+    log(f"[t] {where}: kernel {r['ms']:.4f} ms (device time by "
+        f"torch.profiler {dev_txt} ms), plain {r['plain_ms']:.3f} ms, bound "
         f"{r['bound_ms']:.6f} ms ({r['bound_by']}); per policy "
         + ", ".join(f"{p}={m:.4f}" for p, m in zip(bandit.POLICY_NAMES, ms)))
-    log(f"[t] {name} device time per launch by torch.profiler: "
+    log(f"[t] {where} device time per launch by torch.profiler: "
         + ", ".join(f"{p}={'none' if m is None else f'{m:.4f}'}"
                     for p, m in zip(bandit.POLICY_NAMES, prof)))
+
+
+def more_kernel_times(results: dict) -> None:
+    """[t] lines at KERNEL_TIME_CASES' shapes, beside the main paths'."""
+    for name, cases in KERNEL_TIME_CASES.items():
+        for scen_name, g, k, c, s in cases:
+            kernel_times(results, name, g, k, s, c=c, scen_name=scen_name,
+                         record=False)
 
 
 def profile_sweep(label: str, **kw) -> None:
@@ -653,9 +710,15 @@ def phase_fedavg_kernel(results: dict) -> None:
     gen = torch.Generator(device=dev)
     gen.manual_seed(6)
     worst = 0.0
+    cases = [(g, c, n, 0) for g, c, n in FEDAVG_CASES] + [
+        (g, c, n, 1) for g, c, n in FEDAVG_OFFSET_CASES]
     for dtype in (torch.float32, torch.bfloat16):
-        for g, c, n in FEDAVG_CASES:
-            x = torch.randn((g, c, n), generator=gen, device=dev).to(dtype)
+        for g, c, n, shift in cases:
+            # shift = 1 puts the data pointer one element past the start of
+            # its (16-byte aligned) buffer
+            buf = torch.randn(shift + g * c * n, generator=gen,
+                              device=dev).to(dtype)
+            x = buf[shift:].view(g, c, n)
             w = torch.rand((g, c), generator=gen, device=dev)
             w[:, ::3] = 0.0                       # unselected clients
             w = w / w.sum(1, keepdim=True).clamp_min(1e-9)
@@ -663,7 +726,9 @@ def phase_fedavg_kernel(results: dict) -> None:
             want = ref.fedavg_combine_ref(x, w)
             torch.cuda.synchronize()
             err = (got.float() - want.float()).abs().max().item()
-            where = f"fedavg_combine {str(dtype)[6:]} G={g} C={c} N={n}"
+            where = (f"fedavg_combine {str(dtype)[6:]} G={g} C={c} N={n}"
+                     + (f" (data pointer {x.data_ptr() % 16} bytes past 16)"
+                        if shift else ""))
             if err != 0.0 or not torch.equal(got, want):
                 raise AssertionError(f"[6] {where}: kernel differs from the "
                                      f"plain version (max abs err {err})")
@@ -671,18 +736,33 @@ def phase_fedavg_kernel(results: dict) -> None:
             if n < N_CNN:
                 log(f"[6] {where}: exact")
                 continue
-            ms = time_ms(lambda: cuda_fedavg.fedavg_combine_cuda(x, w), 100)
+            def launch():
+                return cuda_fedavg.fedavg_combine_cuda(x, w)
+            ms = time_ms(launch, 100)
+            dev_ms = profiled_kernel_ms(launch, 20, "fedavg_combine_kernel")
             pms = time_ms(lambda: ref.fedavg_combine_ref(x, w), 5)
-            lms = (time_ms(lambda: torch.einsum("gcn,gc->gn", x, w), 100)
-                   if dtype == torch.float32 else None)
+            if dtype == torch.float32:
+                lib = "einsum"
+                lms = time_ms(lambda: torch.einsum("gcn,gc->gn", x, w), 100)
+            else:
+                # the weights rounded to bf16; cuBLAS accumulates in fp32
+                lib = "matmul of bf16 rows by bf16-rounded weights (fp32 sum)"
+                wb = w.to(dtype)[:, None, :]
+                flags = torch.backends.cuda.matmul
+                keep = flags.allow_bf16_reduced_precision_reduction
+                flags.allow_bf16_reduced_precision_reduction = False
+                lms = time_ms(lambda: torch.matmul(wb, x), 100)
+                flags.allow_bf16_reduced_precision_reduction = keep
             bms, by = fedavg_bound(g, c, n, x.element_size())
-            log(f"[6] {where}: exact; kernel {ms:.4f} ms, plain {pms:.4f} ms, "
-                f"einsum {'n/a' if lms is None else f'{lms:.4f}'} ms, bound "
-                f"{bms:.4f} ms ({by}), {100 * bms / ms:.1f}% of bound")
+            log(f"[6] {where}: exact; kernel {ms:.4f} ms (device time by "
+                f"torch.profiler "
+                f"{'none' if dev_ms is None else f'{dev_ms:.4f}'} ms), plain "
+                f"{pms:.4f} ms, {lib} {lms:.4f} ms, bound {bms:.4f} ms "
+                f"({by}), {100 * bms / ms:.1f}% of bound")
             if (dtype, g, c) == (torch.float32, 1, 5):   # the main path's
                 results["fedavg_combine"].update(
-                    ms=ms, plain_ms=pms, library_ms=lms, bound_ms=bms,
-                    bound_by=by, shape=dict(g=g, c=c, n=n))
+                    ms=ms, device_ms=dev_ms, plain_ms=pms, library_ms=lms,
+                    bound_ms=bms, bound_by=by, shape=dict(g=g, c=c, n=n))
     results["fedavg_combine"]["max_abs_err"] = worst
 
     # the aggregation guard around the kernel against the plain path
@@ -1035,8 +1115,8 @@ def phase_topk_kernel(results: dict) -> None:
             f"{bms:.6f} ms ({by}), {100 * bms / ms:.1f}% of bound")
         if (g, p, c, s) == TOPK_CASES[0][:4]:
             results["topk_slots"].update(
-                ms=ms, plain_ms=pms, library_ms=lms, bound_ms=bms,
-                bound_by=by, shape=dict(g=g, p=p, c=c, s=s))
+                ms=ms, device_ms=dev_ms, plain_ms=pms, library_ms=lms,
+                bound_ms=bms, bound_by=by, shape=dict(g=g, p=p, c=c, s=s))
     results["topk_slots"]["max_abs_err"] = 0.0
 
 
@@ -1084,7 +1164,8 @@ def phase_ucb_kernel(results: dict) -> None:
             f" ms), plain {pms:.4f} ms, bound {bms:.6f} ms (bytes), "
             f"{100 * bms / ms:.1f}% of bound")
         if (g, k) == UCB_CASES[0]:
-            results["ucb_score"].update(ms=ms, plain_ms=pms, bound_ms=bms,
+            results["ucb_score"].update(ms=ms, device_ms=dev_ms,
+                                        plain_ms=pms, bound_ms=bms,
                                         bound_by="bytes",
                                         shape=dict(g=g, k=k))
     results["ucb_score"]["max_abs_err"] = worst_abs
@@ -1436,8 +1517,9 @@ def phase_flash_kernel(results: dict) -> None:
             f"{pms:.4f} ms, SDPA {lms:.4f} ms, bound {bms:.4f} ms ({by}), "
             f"{100 * bms / ms:.2f}% of bound")
         if (b, sq, kv, g, dh, causal) == (4, 4096, 3, 3, 64, True):
-            res.update(ms=ms, plain_ms=pms, library_ms=lms, bound_ms=bms,
-                       bound_by=by, shape=dict(b=b, s=sq, kv=kv, g=g, dh=dh))
+            res.update(ms=ms, device_ms=dev_ms, plain_ms=pms, library_ms=lms,
+                       bound_ms=bms, bound_by=by,
+                       shape=dict(b=b, s=sq, kv=kv, g=g, dh=dh))
 
 
 def _to(tree, device):
@@ -1699,8 +1781,8 @@ def phase_rg_lru_kernel(results: dict) -> None:
             f"{100 * bms / ms:.2f}% of bound; no single PyTorch call")
         if (b, t, w, dtype) == RG_LRU_CASES[0]:
             results["rg_lru_scan"].update(
-                ms=ms, plain_ms=pms, bound_ms=bms, bound_by=by,
-                shape=dict(b=b, t=t, w=w))
+                ms=ms, device_ms=dev_ms, plain_ms=pms, bound_ms=bms,
+                bound_by=by, shape=dict(b=b, t=t, w=w))
     results["rg_lru_scan"]["max_abs_err"] = worst
 
 
@@ -1848,7 +1930,8 @@ def main() -> None:
     sys.path.insert(0, str(ROOT / "src"))
     import repro_torch  # noqa: F401  (fails outside a checkout)
 
-    results = {name: dict(name=name, route="cuda", library_ms=None, **meta)
+    results = {name: dict(name=name, route="cuda", library_ms=None,
+                          device_ms=None, **meta)
                for name, meta in KERNELS.items()}
     t0 = time.perf_counter()
     phase_device_and_build()
@@ -1857,6 +1940,7 @@ def main() -> None:
     kernel_times(results, "bandit_round", g=24, k=100, s=5)
     phase_fast_path(results)
     kernel_times(results, "bandit_round_sampled", g=8, k=10_000, s=5)
+    more_kernel_times(results)
     phase_real_size()
     phase_fedavg_kernel(results)
     phase_card_vs_cpu()
@@ -1870,7 +1954,8 @@ def main() -> None:
     log(f"[done] {time.perf_counter() - t0:.1f} s")
     log(card_name_and_power())          # again, beside the results
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
-            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+            "device_ms")
     print(json.dumps({"kernels": [{k: r[k] for k in keys}
                                   for r in results.values()]}))
     print(json.dumps({"ok": True, "device": {

@@ -29,10 +29,6 @@ from repro_torch.core import bandit
 from repro_torch.kernels import _build
 from repro_torch.sim import truncnorm
 
-# usable shared memory of one Hopper thread block, less the kernel's
-# static arrays (kMaxS-sized slot buffers and the reduction scratch)
-_SMEM_LIMIT = 232448 - 8192
-
 launch_counts = {"bandit_round": 0, "bandit_round_sampled": 0}
 
 
@@ -68,8 +64,7 @@ def _lib():
         lib.bandit_round_launch.argtypes = [ctypes.POINTER(_RoundArgs),
                                             ctypes.c_int, ctypes.c_void_p]
         lib.bandit_round_launch.restype = ctypes.c_int
-        lib.bandit_round_smem_bytes.argtypes = [ctypes.c_int]
-        lib.bandit_round_smem_bytes.restype = ctypes.c_size_t
+        lib.bandit_round_max_c.restype = ctypes.c_int
         lib.bandit_round_max_s.restype = ctypes.c_int
         lib.bandit_round_args_size.restype = ctypes.c_int
         if lib.bandit_round_args_size() != ctypes.sizeof(_RoundArgs):
@@ -107,9 +102,9 @@ def _prepare(sampled, state, cand_idx, *, t_ud=None, t_ul=None, u2=None,
     if not 0 < s_round <= lib.bandit_round_max_s():
         raise ValueError(f"s_round={s_round} outside (0, "
                          f"{lib.bandit_round_max_s()}]")
-    if lib.bandit_round_smem_bytes(max(c, 1)) > _SMEM_LIMIT:
-        raise ValueError(f"{c} candidates exceed the kernel's shared-memory "
-                         f"budget of {_SMEM_LIMIT} bytes")
+    if c > lib.bandit_round_max_c():
+        raise ValueError(f"{c} candidates exceed the kernel's ceiling of "
+                         f"{lib.bandit_round_max_c()}")
     f32, i32 = torch.float32, torch.int32
     args = _RoundArgs()
     for name in bandit.STATE_FIELDS:

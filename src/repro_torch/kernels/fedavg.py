@@ -13,22 +13,61 @@ two by device.
 
 ``launch_counts`` counts the launches (reset it with
 :func:`reset_launch_counts`), so a run can show that it went through the
-kernel.
+kernel.  :func:`copy_plan` mirrors the kernel's bulk-copy arithmetic
+(``plan_chunk`` in the source) so that the CPU tests can check it.
 """
 
 from __future__ import annotations
 
 import ctypes
 
+import numpy as np
 import torch
 
 from repro_torch.kernels import _build
+
+# constants of csrc/fedavg.cu
+ROW_BYTES = 8192               # kRowBytes: one row's chunk of a tile
+SLOT_BYTES = ROW_BYTES + 128   # kSlotBytes: its 128-byte aligned superset
 
 launch_counts = {"fedavg_combine": 0}
 
 
 def reset_launch_counts() -> None:
     launch_counts["fedavg_combine"] = 0
+
+
+def copy_plan(base: int, g: int, c: int, n: int, itemsize: int) -> dict:
+    """How the kernel's bulk-copy path (bfloat16, or float32 with more than
+    32 rows) brings a contiguous [g, c, n] tensor of ``itemsize`` bytes an
+    element, whose data starts at byte address ``base``, to shared memory:
+    one entry per row chunk (grid point, row, tile of
+    ``ROW_BYTES // itemsize`` elements), as numpy int64 arrays.
+
+    ``elem``/``len``: the chunk's first flat element and its length;
+    ``src``/``bytes``: the bulk copy's global byte address and size (no
+    copy when 0), ``dst``: its byte offset in the row's slot; ``off``: the
+    slot element where the chunk's element 0 sits; elements ``[lo, hi)`` of
+    the chunk are read from the slot, the others from global memory.  The
+    copy is the chunk's 128-byte aligned superset clamped to
+    ``[align_up(base), align_down(end))``.  Mirrors ``plan_chunk`` in
+    csrc/fedavg.cu operation for operation."""
+    tile = ROW_BYTES // itemsize
+    tiles = -(-n // tile)
+    row, t = np.divmod(np.arange(g * c * tiles, dtype=np.int64), tiles)
+    elem = row * n + t * tile
+    length = np.minimum(tile, n - t * tile)
+    end = base + g * c * n * itemsize
+    sb = base + elem * itemsize
+    eb = sb + length * itemsize
+    a0, a1 = sb & ~127, (eb + 127) & ~127
+    cs = np.maximum(a0, (base + 15) & ~15)
+    ce = np.maximum(np.minimum(a1, end & ~15), cs)
+    return dict(elem=elem, len=length, src=cs, dst=cs - a0, bytes=ce - cs,
+                off=(sb - a0) // itemsize,
+                lo=np.where(cs > sb, (cs - sb) // itemsize, 0),
+                hi=np.minimum(length,
+                              np.where(ce > sb, (ce - sb) // itemsize, 0)))
 
 
 def _lib():
