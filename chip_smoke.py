@@ -49,13 +49,17 @@ else.  Phases (every mismatch raises, so any failure exits non-zero):
      (selections and round times equal to the selected run's); flaky-clients
      with a deadline for 3 rounds; a torch.profiler breakdown of one
      policy's round.
-  9. the local top-S kernel against its plain version (exact) at the
-     shapes phase 10 gives it, (G, P, C, S) = (8, 4, 10^3, 5) and
-     (2, 8, 10^5, 5), and at (1, 8, 10^5, 5), (2, 2, 4096, 64), with tied
-     scores, -inf valid entries and all-invalid rows, beside torch.topk on
-     the masked scores; the UCB-score kernel against its plain version
-     (bitwise, or within UCB_MAX_ULP) at (G, K) = (8, 10^4), (1, 10^6)
-     with never-selected arms; ``select_naive`` through the kernel on a
+  9. the local top-S kernel against its plain version (bitwise, NaN
+     included) at the shapes phase 10 gives it, (G, P, C, S) =
+     (8, 4, 10^3, 5) and (2, 8, 10^5, 5), and at (1, 8, 10^5, 5),
+     (2, 2, 4096, 64), (2, 8, 10^5, 64), a ragged C = 100,001 and rows of
+     10^6, 1,851,392 and 28,573,696 (the wrapper's longest) whose chunks
+     stream past shared memory, with tied scores, NaN, -inf valid entries,
+     a live -inf at index 0 and all-invalid rows; each shape's plan
+     (cluster size, threads, staged keys) logged and the "path" shapes
+     timed beside torch.topk on the masked scores; the UCB-score kernel
+     against its plain version (bitwise, or within UCB_MAX_ULP) at
+     (G, K) = (8, 10^4), (1, 10^6) with never-selected arms; ``select_naive`` through the kernel on a
      learning state against the plain score and the policy formula.
  10. the client-sharded segmented sweep: paper-baseline at K=10^4 over
      P=4 blocks (8 policies x 8 seeds x 100 rounds) against the flat fused
@@ -1043,27 +1047,48 @@ def fl_full_width(results: dict, default_flags) -> None:
 # ---------------------------------------------------------------------------
 
 # phase 9's top-S cases (G, P, C, S, kind); the first is the shape phase 10
-# gives the kernel at K=10^4, the third its shape at K=10^6
+# gives the kernel at K=10^4, the third its shape at K=10^6.  Every case is
+# held bitwise against the plain version; the "path" ones are also timed.
+# C = 100,001 is ragged at every chunk boundary of its 16-block cluster;
+# rows of 10^6 and more split into chunks whose keys outgrow a block's
+# shared memory, so the kernel streams their tails: 1,851,392 is PR 13's
+# longest row, 28,573,696 the wrapper's (kernels/topk_slots.MAX_C), where
+# a chunk stages no key at all and every entry streams
 TOPK_CASES = [(8, 4, 1_000, 5, "path"), (1, 8, 100_000, 5, "path"),
               (2, 8, 100_000, 5, "path"), (2, 2, 4_096, 64, "path"),
+              (1, 8, 100_001, 5, "path"), (1, 1, 1_000_000, 5, "path"),
+              (2, 8, 100_000, 64, "path"), (1, 1, 1_851_392, 5, "path"),
+              (1, 1, 28_573_696, 5, "path"), (1, 2, 28_573_696, 64, "nan"),
               (8, 4, 1_000, 5, "ties"), (2, 2, 4_096, 64, "edges"),
-              (1, 8, 100_000, 5, "edges")]
+              (1, 8, 100_000, 5, "edges"), (8, 4, 1_000, 5, "nan"),
+              (2, 8, 100_000, 5, "nan"), (2, 4, 1_000, 7, "inf0"),
+              (1, 8, 100_000, 5, "inf0")]
 UCB_CASES = [(8, 10_000), (1, 1_000_000)]
 UCB_MAX_ULP = 2          # phase 9's limit on the score kernel's ulp gap
 
 
-def topk_inputs(g, p, c, kind, gen):
+def topk_inputs(g, p, c, kind, gen, s=5):
     """[G, P, C] scores and validity on the card.  "path": uniform scores,
     each slot owned by one random shard and masked to -inf elsewhere, as
     the segmented round hands them over; "ties": four distinct values,
     unmasked; "edges": ties, -inf at valid entries, an all-invalid row and
-    a row whose live scores are all -inf."""
+    a row whose live scores are all -inf; "nan": uniform scores with 1 %
+    NaN; "inf0": a live -inf at index 0 and about S / 2 live entries a
+    row, so that the tail gives (-inf, 0)."""
     dev = torch.device("cuda")
     score = torch.rand((g, p, c), generator=gen, device=dev)
     owner = torch.randint(0, p, (g, 1, c), generator=gen, device=dev)
     valid = owner == torch.arange(p, device=dev).view(1, p, 1)
     if kind == "path":
         score = torch.where(valid, score, float("-inf"))
+    elif kind == "nan":
+        score[torch.rand((g, p, c), generator=gen, device=dev) < 0.01] = (
+            float("nan"))
+        valid = torch.rand((g, p, c), generator=gen, device=dev) < 0.7
+    elif kind == "inf0":
+        valid = torch.rand((g, p, c), generator=gen, device=dev) < s / (2 * c)
+        score[..., 0] = float("-inf")
+        valid[..., 0] = True
     else:
         score = (score * 4).floor() / 4
         valid = torch.rand((g, p, c), generator=gen, device=dev) < 0.7
@@ -1080,23 +1105,33 @@ def topk_bound(rows: int, c: int, s: int):
     return (rows * (c * 5 + s * 8)) / HBM_BYTES_PER_S * 1e3, "bytes"
 
 
+def bits_equal(a: torch.Tensor, b: torch.Tensor) -> bool:
+    """Bitwise equality of two float32 tensors (NaN and -0.0 included)."""
+    return torch.equal(a.view(torch.int32), b.view(torch.int32))
+
+
 def phase_topk_kernel(results: dict) -> None:
     from repro_torch.kernels import ref
     from repro_torch.kernels import topk_slots as cuda_topk
     gen = torch.Generator(device="cuda")
     gen.manual_seed(9)
+    shapes = []
     for g, p, c, s, kind in TOPK_CASES:
-        score, valid = topk_inputs(g, p, c, kind, gen)
+        score, valid = topk_inputs(g, p, c, kind, gen, s)
+        plan = cuda_topk.plan(g * p, c)
         vals, slots = cuda_topk.local_topk_cuda(score, valid, s)
         pv, ps = ref.local_topk_ref(score, valid, s)
         torch.cuda.synchronize()
-        where = f"topk_slots G={g} P={p} C={c} S={s} {kind}"
-        if not (torch.equal(slots, ps) and torch.equal(vals, pv)):
+        where = (f"topk_slots G={g} P={p} C={c} S={s} {kind} (cluster "
+                 f"{plan.cluster} x {plan.threads} threads, chunk "
+                 f"{plan.chunk}, {plan.staged} staged)")
+        if not (torch.equal(slots, ps) and bits_equal(vals, pv)):
             raise AssertionError(f"[9] {where}: kernel differs from the plain "
                                  f"version")
         if kind != "path":
             log(f"[9] {where}: exact (exhausted steps "
-                f"{int((slots < 0).sum())})")
+                f"{int((slots < 0).sum())}, tail picks of entry 0 "
+                f"{int(((slots == 0) & (vals == float('-inf'))).sum())})")
             continue
         masked = torch.where(valid, score, float("-inf"))
         lib = masked.topk(s, dim=-1)
@@ -1112,12 +1147,17 @@ def phase_topk_kernel(results: dict) -> None:
         log(f"[9] {where}: exact; kernel {ms:.4f} ms (device time by "
             f"torch.profiler {'none' if dev_ms is None else f'{dev_ms:.4f}'}"
             f" ms), plain {pms:.4f} ms, torch.topk {lms:.4f} ms, bound "
-            f"{bms:.6f} ms ({by}), {100 * bms / ms:.1f}% of bound")
+            f"{bms:.6f} ms ({by}), {100 * bms / ms:.1f}% of bound"
+            f"{'' if ms <= lms else ' (SLOWER than torch.topk)'}")
+        shapes.append(dict(g=g, p=p, c=c, s=s, cluster=plan.cluster, ms=ms,
+                           device_ms=dev_ms, plain_ms=pms, library_ms=lms,
+                           bound_ms=bms))
         if (g, p, c, s) == TOPK_CASES[0][:4]:
             results["topk_slots"].update(
                 ms=ms, device_ms=dev_ms, plain_ms=pms, library_ms=lms,
                 bound_ms=bms, bound_by=by, shape=dict(g=g, p=p, c=c, s=s))
     results["topk_slots"]["max_abs_err"] = 0.0
+    results["topk_slots"]["shapes"] = shapes
 
 
 def ucb_inputs(g, k, gen):
@@ -1956,8 +1996,10 @@ def main() -> None:
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
             "device_ms")
-    print(json.dumps({"kernels": [{k: r[k] for k in keys}
-                                  for r in results.values()]}))
+    print(json.dumps({"kernels": [
+        {**{k: r[k] for k in keys},
+         **({"shapes": r["shapes"]} if "shapes" in r else {})}
+        for r in results.values()]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))
