@@ -59,8 +59,11 @@ else.  Phases (every mismatch raises, so any failure exits non-zero):
      (cluster size, threads, staged keys) logged and the "path" shapes
      timed beside torch.topk on the masked scores; the UCB-score kernel
      against its plain version (bitwise, or within UCB_MAX_ULP) at
-     (G, K) = (8, 10^4), (1, 10^6) with never-selected arms; ``select_naive`` through the kernel on a
-     learning state against the plain score and the policy formula.
+     (G, K) = (8, 10^4), (1, 10^6) and the ragged (3, 10^4 + 1) and
+     (3, 2 * 10^5 + 1) with never-selected arms, timed, and on data
+     pointers off 16 bytes; its wrapper refusing n_sel on another device;
+     ``select_naive`` through the kernel on a learning state against the
+     plain score and the policy formula.
  10. the client-sharded segmented sweep: paper-baseline at K=10^4 over
      P=4 blocks (8 policies x 8 seeds x 100 rounds) against the flat fused
      and unfused sweeps, flaky-clients with a deadline against the flat
@@ -82,10 +85,15 @@ else.  Phases (every mismatch raises, so any failure exits non-zero):
      and (1, 32768, 3, 3, 64), causal, at qwen3-1.7b's dh = 128 (1, 2048,
      8, 2, 128) causal and full, and at ragged shapes for dh 32, 64 and 128,
      causal and full, Sq and Skv no multiple of its 64-key tile and not
-     always equal; the float32 CUDA-core kernel at (4, 4096, 3, 3, 64) and
-     ragged (2, 1000, 1, 4, 64) (f32 rtol 2e-5 / atol 1e-5, bf16 rtol 1e-2 /
-     atol 1e-4: one bf16 step of the output), each case timed beside its
-     plain version, scaled_dot_product_attention and its bound; reduced
+     always equal; the float32 kernel (3xTF32 wgmma on TMA-fed split K/V
+     tiles), first its products on one tile against float64 at dh 32, 64
+     and 128 (TILE_CHECK_MAX_REL), then at (4, 4096, 3, 3, 64), qwen3's
+     (1, 2048, 8, 2, 128) and ragged shapes at dh 32, 64 and 128, causal and
+     full, Sq and Skv not always equal (f32 rtol 2e-5 / atol 1e-5, bf16
+     rtol 1e-2 / atol 1e-4: one bf16 step of the output), each case timed
+     beside its plain version, scaled_dot_product_attention and its bound
+     (the type's tensor-core rate: bf16, or tf32 for float32; the f32
+     kernel's split pass's device time too); reduced
      smollm-135m at S = 1024 on the card against the CPU (f32 and bf16:
      prefill logits, 8 decode steps, the KV cache; each prefill launches its
      dtype's variant once per layer and the other never);
@@ -151,7 +159,7 @@ KERNELS = {
     "ucb_score": dict(
         replaces="src/repro/kernels/ucb_score.py:39",
         source=CSRC + "ucb_score.cu"),
-    "flash_attention": dict(           # float32, CUDA cores
+    "flash_attention": dict(           # float32, 3xTF32 wgmma + TMA
         replaces="src/repro/kernels/flash_attention.py:81",
         source=CSRC + "flash_attention.cu"),
     "flash_attention_wgmma": dict(     # bfloat16, wgmma + TMA (the prefill's)
@@ -1063,7 +1071,14 @@ TOPK_CASES = [(8, 4, 1_000, 5, "path"), (1, 8, 100_000, 5, "path"),
               (1, 8, 100_000, 5, "edges"), (8, 4, 1_000, 5, "nan"),
               (2, 8, 100_000, 5, "nan"), (2, 4, 1_000, 7, "inf0"),
               (1, 8, 100_000, 5, "inf0")]
-UCB_CASES = [(8, 10_000), (1, 1_000_000)]
+# (G, K): select_naive's shape (the main path's, first), the JAX package's
+# largest K, and ragged K whose rows 1 and 2 start off a 16-byte boundary:
+# 10^4 + 1 and 2 * 10^5 + 1 (a partial last block in every row)
+UCB_CASES = [(8, 10_000), (1, 1_000_000), (3, 10_001), (3, 200_001)]
+# (G, K, sums offset, n_sel offset) in elements: data pointers off 16 bytes
+# (views of a larger buffer), the two at the same and at different offsets
+UCB_OFFSET_CASES = [(2, 4_099, 1, 1), (2, 300_001, 1, 1),
+                    (2, 300_002, 1, 3), (1, 3, 2, 2)]
 UCB_MAX_ULP = 2          # phase 9's limit on the score kernel's ulp gap
 
 
@@ -1178,20 +1193,43 @@ def phase_ucb_kernel(results: dict) -> None:
     gen = torch.Generator(device="cuda")
     gen.manual_seed(10)
     worst_ulp, worst_abs = 0, 0.0
-    for g, k in UCB_CASES:
-        sums, n, total = ucb_inputs(g, k, gen)
-        total[0] = 1                        # log max(total, 2) at the floor
+
+    def check(sums, n, total, where):
+        nonlocal worst_ulp, worst_abs
         got = cuda_ucb.ucb_scores_cuda(sums, n, total, 1000.0)
         want = ref.ucb_scores_ref(sums, n, total, 1000.0)
         torch.cuda.synchronize()
         ulp = int((got.view(torch.int32).long()
                    - want.view(torch.int32).long()).abs().max())
         err = float((got - want).abs().max())
-        where = f"ucb_score G={g} K={k}"
         if ulp > UCB_MAX_ULP or not torch.equal(got[n == 0], want[n == 0]):
             raise AssertionError(f"[9] {where}: kernel {ulp} ulp from the "
                                  f"plain version (limit {UCB_MAX_ULP})")
         worst_ulp, worst_abs = max(worst_ulp, ulp), max(worst_abs, err)
+        return ulp, err
+
+    for g, k, s_off, n_off in UCB_OFFSET_CASES:
+        sums, n, total = ucb_inputs(g, k, gen)
+        bs = torch.empty(g * k + s_off, device="cuda")
+        bn = torch.empty(g * k + n_off, dtype=torch.int32, device="cuda")
+        bs[s_off:], bn[n_off:] = sums.flatten(), n.flatten()
+        ulp, _ = check(bs[s_off:].view(g, k), bn[n_off:].view(g, k), total,
+                       f"ucb_score G={g} K={k} offsets {s_off}, {n_off}")
+        log(f"[9] ucb_score G={g} K={k}, sums {s_off} and n_sel {n_off} "
+            f"elements off 16 bytes: {ulp} ulp from the plain version")
+    sums, n, total = ucb_inputs(2, 100, gen)
+    try:
+        cuda_ucb.ucb_scores_cuda(sums, n.cpu(), total)
+    except ValueError as e:
+        log(f"[9] ucb_score refuses n_sel on another device: {e}")
+    else:
+        raise AssertionError("[9] ucb_score took n_sel on the CPU")
+    shapes = []
+    for g, k in UCB_CASES:
+        sums, n, total = ucb_inputs(g, k, gen)
+        total[0] = 1                        # log max(total, 2) at the floor
+        where = f"ucb_score G={g} K={k}"
+        ulp, err = check(sums, n, total, where)
         def launch():
             return cuda_ucb.ucb_scores_cuda(sums, n, total, 1000.0)
         ms = time_ms(launch, 100)
@@ -1203,12 +1241,14 @@ def phase_ucb_kernel(results: dict) -> None:
             f"torch.profiler {'none' if dev_ms is None else f'{dev_ms:.4f}'}"
             f" ms), plain {pms:.4f} ms, bound {bms:.6f} ms (bytes), "
             f"{100 * bms / ms:.1f}% of bound")
+        shapes.append(dict(g=g, k=k, ms=ms, device_ms=dev_ms, plain_ms=pms,
+                           bound_ms=bms))
         if (g, k) == UCB_CASES[0]:
             results["ucb_score"].update(ms=ms, device_ms=dev_ms,
                                         plain_ms=pms, bound_ms=bms,
                                         bound_by="bytes",
                                         shape=dict(g=g, k=k))
-    results["ucb_score"]["max_abs_err"] = worst_abs
+    results["ucb_score"].update(max_abs_err=worst_abs, shapes=shapes)
 
     # the main path: select_naive on a learning state, through the kernel,
     # against the policy formula and the plain score on the same state
@@ -1446,11 +1486,14 @@ def phase_hierarchy() -> None:
 # ---------------------------------------------------------------------------
 
 BF16_TC_OPS_PER_S = 989e12     # H100 SXM bf16 dense tensor-core rate
+TF32_TC_OPS_PER_S = 495e12     # H100 SXM tf32 dense tensor-core rate
 # (B, Sq, Skv, KV, G, dh, causal, dtype): smollm-135m's prefill shapes (the
 # main path's first), the main path's shape once more in float32,
-# qwen3-1.7b's head width, a ragged f32 case, and ragged bfloat16 cases for
-# every head width the tensor-core kernel takes, causal and full, Sq and Skv
-# no multiple of 64 (its key tile) and not always equal
+# qwen3-1.7b's head width, ragged f32 cases at every head width, causal and
+# full, Sq and Skv no multiple of the f32 kernel's 64- (32-) key tile and not
+# always equal, and ragged bfloat16 cases for every head width the
+# tensor-core kernel takes, causal and full, Sq and Skv no multiple of 64
+# (its key tile) and not always equal
 FLASH_CASES = [(4, 4096, 4096, 3, 3, 64, True, "bfloat16"),
                (4, 4096, 4096, 3, 3, 64, True, "float32"),
                (1, 32768, 32768, 3, 3, 64, True, "bfloat16"),
@@ -1464,9 +1507,18 @@ FLASH_CASES = [(4, 4096, 4096, 3, 3, 64, True, "bfloat16"),
                (1, 1100, 1300, 2, 3, 32, False, "bfloat16"),
                (2, 333, 333, 1, 3, 128, True, "bfloat16"),
                (1, 700, 900, 2, 2, 128, True, "bfloat16"),
-               (1, 900, 700, 2, 2, 128, False, "bfloat16")]
+               (1, 900, 700, 2, 2, 128, False, "bfloat16"),
+               (1, 1100, 1300, 2, 3, 32, False, "float32"),
+               (1, 1500, 1500, 2, 3, 32, True, "float32"),
+               (2, 1000, 777, 1, 4, 64, False, "float32"),
+               (1, 700, 900, 2, 2, 128, True, "float32"),
+               (1, 900, 700, 2, 2, 128, False, "float32"),
+               (1, 2048, 2048, 8, 2, 128, True, "float32")]
 # the variant each dtype launches, and the kernel name torch.profiler shows
-FLASH_VARIANT = {"float32": ("flash_attention", "flash_attention_kernel"),
+# (the float32 call also launches its split pass, F32_SPLIT_KERNEL, timed
+# on its own)
+FLASH_VARIANT = {"float32": ("flash_attention",
+                             "flash_attention_3xtf32_kernel"),
                  "bfloat16": ("flash_attention_wgmma",
                               "flash_attention_wgmma_kernel")}
 # kernel against its plain version.  float32: the JAX package's tolerance
@@ -1488,33 +1540,92 @@ FLASH_TOL = {"float32": dict(rtol=2e-5, atol=1e-5),
 # every matmul, at other places)
 LM_TOL = {"float32": (dict(rtol=1e-5, atol=1e-5), dict(rtol=1e-5, atol=5e-5)),
           "bfloat16": (dict(rtol=2e-2, atol=3e-2), dict(rtol=2e-2, atol=0.1))}
+F32_SPLIT_KERNEL = "kv_split_tf32_kernel"
+# the one-tile check of the float32 kernel's 3xTF32 products against
+# float64 (flash_attention_tile_check): the largest error of S = A K^T and of
+# O = S V over the largest value of the float64 product.  Three TF32
+# products carry ~22 bits of each product (emulated: ~2.5e-7 at dh 64);
+# one TF32 product reads ~3.4e-4 there.  Above 1e-6 the tensor cores would
+# round their float32 sums coarser than float32 does
+TILE_CHECK_MAX_REL = 1e-6
 SERVE_ARGS = ["--arch", "smollm-135m", "--full", "--batch", "4",
               "--prompt-len", "4096", "--decode-steps", "32"]
 
 
-def flash_bound(b, sq, skv, kv, g, dh, causal, itemsize):
-    """Least time (ms) of one attention forward: 4·dh float operations per
-    (query row, visible key) pair — the keys j <= i when causal — over the
-    type's peak (bf16 tensor cores, or float32 outside them), against q
-    and the output (Sq rows) and k, v (Skv rows) moved once over the memory
-    rate."""
+def flash_ops(b, sq, skv, kv, g, dh, causal) -> int:
+    """4·dh float operations per (query row, visible key) pair — the keys
+    j <= i when causal."""
     if causal:
         n = min(sq, skv)
         pairs = n * (n + 1) // 2 + (sq - n) * skv
     else:
         pairs = sq * skv
-    ops = 4 * b * kv * g * pairs * dh
-    rate = BF16_TC_OPS_PER_S if itemsize == 2 else FP32_OPS_PER_S
+    return 4 * b * kv * g * pairs * dh
+
+
+def flash_bound(b, sq, skv, kv, g, dh, causal, itemsize):
+    """Least time (ms) of one attention forward: flash_ops over the type's
+    tensor-core peak (bf16, or tf32 for float32: the fastest rate at which
+    the card takes float32 products), against q and the output (Sq rows)
+    and k, v (Skv rows) moved once over the memory rate.  The float32
+    kernel issues three TF32 products for each of these (3xTF32): work of
+    its design, not of the function, so it stays out of the bound."""
+    ops = flash_ops(b, sq, skv, kv, g, dh, causal)
+    rate = BF16_TC_OPS_PER_S if itemsize == 2 else TF32_TC_OPS_PER_S
     nbytes = itemsize * (2 * b * sq * kv * g * dh + 2 * b * skv * kv * dh)
     t_ops, t_bytes = ops / rate * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
+def tile_check(lib, dh: int, seed: int = 0):
+    """The float32 kernel's products on one tile, through ``lib``'s
+    ``flash_attention_tile_check``: (error of S = A K^T, error of O = S V)
+    against float64 products of the same float32 inputs (O's from the
+    card's S), each over the float64 result's largest value."""
+    import ctypes
+
+    from repro_torch.kernels import flash_attention as cuda_flash
+    fn = lib.flash_attention_tile_check
+    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    bn = cuda_flash.F32_TILES[dh][1]
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(seed)
+    a, k, v = (torch.randn(64, dh, generator=gen, device="cuda")
+               for _ in range(3))
+    scratch = torch.empty(cuda_flash.f32_scratch_shape(1, 64, 1, dh),
+                          device="cuda")
+    s_out = torch.empty(64, bn, device="cuda")
+    o_out = torch.empty(64, dh, device="cuda")
+    err = fn(a.data_ptr(), k.data_ptr(), v.data_ptr(), scratch.data_ptr(),
+             s_out.data_ptr(), o_out.data_ptr(), dh,
+             torch._C._cuda_getCurrentRawStream(0))
+    torch.cuda.synchronize()
+    if err != 0:
+        raise RuntimeError(f"tile check launch failed: CUDA error {err}")
+    s64 = a.double() @ k[:bn].double().T
+    o64 = s_out.double() @ v[:bn].double()
+    return tuple(float((got.double() - want).abs().max() / want.abs().max())
+                 for got, want in ((s_out, s64), (o_out, o64)))
+
+
 def phase_flash_kernel(results: dict) -> None:
     import torch.nn.functional as F
 
+    from repro_torch.kernels import _build
     from repro_torch.kernels import flash_attention as cuda_flash
     from repro_torch.kernels import ref
+    # first, the float32 kernel's 3xTF32 products on one tile against
+    # float64: its fragment layouts and the tensor cores' float32 sums
+    lib = _build.load("flash_attention")
+    for dh in cuda_flash.HEAD_DIMS:
+        errs = tile_check(lib, dh)
+        log(f"[12] one-tile 3xTF32 check dh {dh}: S = A K^T {errs[0]:.3g}, "
+            f"O = S V {errs[1]:.3g} of the float64 product's largest value "
+            f"(limit {TILE_CHECK_MAX_REL:g})")
+        if max(errs) > TILE_CHECK_MAX_REL:
+            raise AssertionError(f"[12] one-tile 3xTF32 check at dh {dh} "
+                                 f"above {TILE_CHECK_MAX_REL:g}")
     gen = torch.Generator(device="cuda")
     gen.manual_seed(12)
     for b, sq, skv, kv, g, dh, causal, dtype in FLASH_CASES:
@@ -1550,16 +1661,28 @@ def phase_flash_kernel(results: dict) -> None:
             qs, ks, vs, is_causal=causal, enable_gqa=True), n)
         bms, by = flash_bound(b, sq, skv, kv, g, dh, causal,
                               q.element_size())
+        bounds = f"bound {bms:.4f} ms ({by}), {100 * bms / ms:.2f}% of bound"
+        if dtype == "float32":
+            # beside the bound, the same operations at the CUDA cores'
+            # float32 rate (the ceiling of a CUDA-core design) and the split
+            # pass's own device time
+            cc_ms = flash_ops(b, sq, skv, kv, g, dh, causal) \
+                / FP32_OPS_PER_S * 1e3
+            split_ms = profiled_kernel_ms(launch, max(n, 3), F32_SPLIT_KERNEL)
+            split = "none" if split_ms is None else f"{split_ms:.4f}"
+            bounds += (f"; the operations at the CUDA cores' float32 rate "
+                       f"{cc_ms:.4f} ms; split pass {split} ms device time")
         log(f"[12] {where}: max abs err {err:.3g} (rtol/atol "
             f"{FLASH_TOL[dtype]['rtol']}/{FLASH_TOL[dtype]['atol']}); kernel "
             f"{ms:.4f} ms (device time by torch.profiler "
             f"{'none' if dev_ms is None else f'{dev_ms:.4f}'} ms), plain "
-            f"{pms:.4f} ms, SDPA {lms:.4f} ms, bound {bms:.4f} ms ({by}), "
-            f"{100 * bms / ms:.2f}% of bound")
+            f"{pms:.4f} ms, SDPA {lms:.4f} ms, {bounds}")
         if (b, sq, kv, g, dh, causal) == (4, 4096, 3, 3, 64, True):
             res.update(ms=ms, device_ms=dev_ms, plain_ms=pms, library_ms=lms,
                        bound_ms=bms, bound_by=by,
                        shape=dict(b=b, s=sq, kv=kv, g=g, dh=dh))
+            if dtype == "float32":
+                res.update(split_device_ms=split_ms)
 
 
 def _to(tree, device):
@@ -1996,9 +2119,9 @@ def main() -> None:
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
             "device_ms")
+    extra = ("shapes", "split_device_ms")
     print(json.dumps({"kernels": [
-        {**{k: r[k] for k in keys},
-         **({"shapes": r["shapes"]} if "shapes" in r else {})}
+        {**{k: r[k] for k in keys}, **{k: r[k] for k in extra if k in r}}
         for r in results.values()]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -10,8 +10,8 @@
 //   _flash_fwd_kernel; src/repro/kernels/flash_attention.py:81)
 // for bfloat16 inputs, and computes what the plain PyTorch version
 // repro_torch/kernels/ref.py::flash_attention_ref does.  Float32 inputs go
-// to kernels/csrc/flash_attention.cu (CUDA-core FMAs; TF32 would not hold
-// the float32 tolerance).
+// to kernels/csrc/flash_attention.cu (3xTF32 on the tensor cores: one TF32
+// product would not hold the float32 tolerance, three do).
 //
 // Semantics kept from the TPU kernel.  The logits are float32 dot products
 // of the bfloat16 values (exact products, float32 sums in the tensor

@@ -6,17 +6,21 @@ chosen by dtype:
 - bfloat16 (the LM prefill's path): kernels/csrc/flash_attention_sm90.cu,
   wgmma on the tensor cores with K/V tiles brought by TMA; launches counted
   as ``flash_attention_wgmma``;
-- float32: kernels/csrc/flash_attention.cu, FMAs on the CUDA cores (TF32
-  would not hold the float32 tolerance); counted as ``flash_attention``.
+- float32: kernels/csrc/flash_attention.cu, 3xTF32 on the tensor cores
+  (each operand as tf32 hi + lo, three TF32 products per product, which
+  holds the float32 tolerance where one TF32 product does not), wgmma on
+  TMA-fed split K/V tiles; counted as ``flash_attention``, one count per
+  call for its two launches (the split pass, then the attention kernel).
 
-One launch computes causal (or full) grouped-query attention in the JAX
+One call computes causal (or full) grouped-query attention in the JAX
 layout: ``q`` [B, Sq, KV, G, dh], ``k``/``v`` [B, Skv, KV, dh], dh in
 {32, 64, 128} -> [B, Sq, KV, G, dh] in q's dtype.  The wrapper checks
-device, dtype, shape, contiguity and (bfloat16) 16-byte alignment,
-allocates the output, launches on PyTorch's current stream and raises if
-the launch fails; nothing falls back to the other variant.  It takes CUDA
-tensors only; the plain version is ``kernels/ref.flash_attention_ref``, and
-kernels/ops.py routes between the two by device.
+device, dtype, shape, contiguity and 16-byte alignment, allocates the
+output (and, for float32, the split K/V's scratch, :func:`f32_scratch_shape`),
+launches on PyTorch's current stream and raises if the launch fails;
+nothing falls back to the other variant or the plain version.  It takes
+CUDA tensors only; the plain version is ``kernels/ref.flash_attention_ref``,
+and kernels/ops.py routes between the two by device.
 
 ``launch_counts`` counts the launches of each variant (reset it with
 :func:`reset_launch_counts`), so a run can show which kernel it went
@@ -26,6 +30,7 @@ through.
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -39,6 +44,29 @@ VARIANTS = {torch.float32: ("flash_attention", "flash_attention"),
 # (position, head) rows a block of the bf16 kernel takes at dh 128 (192 at
 # smaller dh); its grid may hold at most 65535 such row tiles
 WGMMA_ROWS = 128
+# the float32 kernel's tiles by head width, as Shape<DH> in
+# csrc/flash_attention.cu: (consumer warpgroups of 64 rows, beside one
+# producer warp; keys a K/V tile; ring stages)
+F32_TILES = {32: (2, 64, 4), 64: (2, 64, 2), 128: (1, 32, 2)}
+F32_KEY_PAD = 64       # kKeyPad: the split K/V's keys, padded to a multiple
+F32_SPLIT_KEYS = 32    # kSplitKeys: keys a block of the split pass takes
+
+
+def f32_rows(dh: int) -> int:
+    """(position, head) rows a block of the float32 kernel takes."""
+    return 64 * F32_TILES[dh][0]
+
+
+def f32_key_pad(skv: int) -> int:
+    """Skv rounded up to the split K/V's key padding."""
+    return -(-skv // F32_KEY_PAD) * F32_KEY_PAD
+
+
+def f32_scratch_shape(b: int, skv: int, kv: int, dh: int):
+    """The float32 kernel's scratch: K_hi, K_lo as [B * KV, Skv_pad, dh] and
+    V_hi^T, V_lo^T as [B * KV, dh, Skv_pad], one [4, B * KV, Skv_pad * dh]
+    float32 buffer."""
+    return (4, b * kv, f32_key_pad(skv) * dh)
 
 
 def reset_launch_counts() -> None:
@@ -46,16 +74,15 @@ def reset_launch_counts() -> None:
         launch_counts[name] = 0
 
 
+@functools.cache
 def _launcher(source: str):
     """The C entry point ``<source>_launch`` of the library built from
-    ``csrc/<source>.cu``; both variants take the same arguments."""
-    lib = _build.load(source)
-    fn = getattr(lib, f"{source}_launch")
-    if not getattr(lib, "_repro_ready", False):
-        fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 7
-                       + [ctypes.c_float, ctypes.c_void_p])
-        fn.restype = ctypes.c_int
-        lib._repro_ready = True
+    ``csrc/<source>.cu``; the float32 one takes the scratch after ``o``."""
+    fn = getattr(_build.load(source), f"{source}_launch")
+    n_ptr = 5 if source == "flash_attention" else 4
+    fn.argtypes = ([ctypes.c_void_p] * n_ptr + [ctypes.c_int] * 7
+                   + [ctypes.c_float, ctypes.c_void_p])
+    fn.restype = ctypes.c_int
     return fn
 
 
@@ -86,20 +113,29 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if dh not in HEAD_DIMS:
         raise ValueError(f"head width {dh} not in {HEAD_DIMS}")
     wgmma = q.dtype == torch.bfloat16
-    grid_ok = (-(-sq * g // WGMMA_ROWS) <= 65535 and b * kv < 2 ** 31
-               if wgmma else b * kv <= 65535 and sq * g < 2 ** 31)
+    # float32: the launch refuses too many row tiles itself; the split
+    # pass's grid is checked here, before its scratch is allocated
+    grid_ok = b * kv < 2 ** 31 and (
+        -(-sq * g // WGMMA_ROWS) <= 65535 if wgmma
+        else f32_key_pad(skv) // F32_SPLIT_KEYS <= 65535)
     if min(b, sq, skv, kv, g) < 1 or not grid_ok:
         raise ValueError(f"sizes out of range: B={b}, Sq={sq}, Skv={skv}, "
                          f"KV={kv}, G={g}")
     out = torch.empty_like(q)
-    if wgmma and any(x.data_ptr() % 16 for x in (q, k, v, out)):
-        raise ValueError("the bfloat16 kernel needs 16-byte aligned q, k "
-                         "and v (TMA and 16-byte loads)")
+    aligned = (q, k, v, out) if wgmma else (q, out)
+    if any(x.data_ptr() % 16 for x in aligned):
+        raise ValueError("the attention kernels need 16-byte aligned q and "
+                         "output (and, in bfloat16, k and v): TMA and "
+                         "16-byte loads")
     source, name = VARIANTS[q.dtype]
+    ptrs = [q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr()]
+    if not wgmma:
+        scratch = torch.empty(f32_scratch_shape(b, skv, kv, dh),
+                              dtype=torch.float32, device=q.device)
+        ptrs.append(scratch.data_ptr())
     err = _launcher(source)(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, sq, skv,
-        kv, g, dh, int(causal), dh ** -0.5,
-        torch.cuda.current_stream(q.device).cuda_stream)
+        *ptrs, b, sq, skv, kv, g, dh, int(causal), dh ** -0.5,
+        torch._C._cuda_getCurrentRawStream(q.get_device()))
     if err != 0:
         raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
     launch_counts[name] += 1

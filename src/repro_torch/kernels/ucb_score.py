@@ -17,8 +17,8 @@ kernel.
 from __future__ import annotations
 
 import ctypes
+import functools
 
-import numpy as np
 import torch
 
 from repro_torch.kernels import _build
@@ -30,46 +30,49 @@ def reset_launch_counts() -> None:
     launch_counts["ucb_score"] = 0
 
 
-def _lib():
-    lib = _build.load("ucb_score")
-    if not getattr(lib, "_repro_ready", False):
-        lib.ucb_score_launch.argtypes = [
-            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-            ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float,
-            ctypes.c_void_p]
-        lib.ucb_score_launch.restype = ctypes.c_int
-        lib._repro_ready = True
-    return lib
+@functools.cache
+def _launcher():
+    """``ucb_score_launch`` with its argument types, set once at load;
+    alpha goes as ``ctypes.c_float``, which rounds a Python float to
+    float32 as ``np.float32`` does."""
+    fn = _build.load("ucb_score").ucb_score_launch
+    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int, ctypes.c_longlong,
+                                           ctypes.c_float, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
 
 
 def ucb_scores_cuda(sums: torch.Tensor, n_sel: torch.Tensor,
                     total: torch.Tensor,
                     alpha: float = 1000.0) -> torch.Tensor:
     """The scores on the card; contract of ``kernels/ref.ucb_scores_ref``."""
-    if not (isinstance(sums, torch.Tensor) and sums.is_cuda):
+    if not isinstance(sums, torch.Tensor) or sums.dtype != torch.float32 \
+            or sums.dim() != 2:
+        raise ValueError(f"sums must be a float32 [G, K] tensor, got "
+                         f"{getattr(sums, 'dtype', type(sums))} "
+                         f"{tuple(getattr(sums, 'shape', ()))}")
+    g, k = sums.shape
+    for name, x, shape in (("n_sel", n_sel, (g, k)), ("total", total, (g,))):
+        if (not isinstance(x, torch.Tensor) or x.dtype != torch.int32
+                or x.shape != shape):
+            raise ValueError(f"{name} must be an int32 tensor of shape "
+                             f"{shape}")
+    dev = sums.get_device()
+    if dev < 0:
         raise ValueError("the CUDA ucb_score kernel takes CUDA tensors; "
                          "kernels/ops.py routes CPU tensors to the plain "
                          "version")
-    if sums.dtype != torch.float32 or sums.dim() != 2:
-        raise ValueError(f"sums must be float32 [G, K], got {sums.dtype} "
-                         f"{tuple(sums.shape)}")
-    g, k = sums.shape
-    for name, x, shape in (("n_sel", n_sel, (g, k)), ("total", total, (g,))):
-        if (not isinstance(x, torch.Tensor) or x.device != sums.device
-                or x.dtype != torch.int32 or tuple(x.shape) != shape):
-            raise ValueError(f"{name} must be int32 of shape {shape} on "
-                             f"{sums.device}")
+    if n_sel.get_device() != dev or total.get_device() != dev:
+        raise ValueError(f"n_sel and total must be on {sums.device}")
     if not (sums.is_contiguous() and n_sel.is_contiguous()
             and total.is_contiguous()):
         raise ValueError("sums, n_sel and total must be contiguous")
     if not (0 < g <= 65535 and k > 0):
         raise ValueError(f"G={g} or K={k} out of range")
-    out = torch.empty((g, k), dtype=torch.float32, device=sums.device)
-    lib = _lib()
-    stream = torch.cuda.current_stream(sums.device).cuda_stream
-    err = lib.ucb_score_launch(sums.data_ptr(), n_sel.data_ptr(),
-                               total.data_ptr(), out.data_ptr(), g, k,
-                               float(np.float32(alpha)), stream)
+    out = torch.empty_like(sums)
+    err = _launcher()(sums.data_ptr(), n_sel.data_ptr(), total.data_ptr(),
+                      out.data_ptr(), g, k, alpha,
+                      torch._C._cuda_getCurrentRawStream(dev))
     if err != 0:
         raise RuntimeError(f"ucb_score kernel launch failed: CUDA error "
                            f"{err}")

@@ -68,6 +68,37 @@ def test_ucb_scores_ref_matches_jax(k, alpha):
     np.testing.assert_array_equal(routed.numpy(), got)
 
 
+@pytest.mark.parametrize("alpha", sorted(set(bandit.DEFAULT_HYPERS.values()))
+                         + [700.0, 3.5, 0.1, 1 / 3, 1e-40, 3.4028235e38,
+                            1.0000000596046448, 16777217.0, -2.5])
+def test_kernel_alpha_rounds_as_float32(alpha):
+    """The kernel wrapper passes alpha as ``ctypes.c_float``; it must round
+    a Python float as ``np.float32`` (the plain version's float32 alpha)
+    does, ties and subnormals included."""
+    import ctypes
+    assert ctypes.c_float(alpha).value == float(np.float32(alpha))
+
+
+def test_kernel_wrapper_refuses_bad_inputs():
+    """CPU tensors, wrong dtypes and shapes are refused before any launch
+    (a CUDA tensor with n_sel or total on another device is refused too:
+    chip_smoke.py phase 9 checks that on the card)."""
+    from repro_torch.kernels import ucb_score as tucb
+    sums, n, total = (torch.from_numpy(x) for x in _ucb_inputs(16))
+    before = dict(tucb.launch_counts)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        tucb.ucb_scores_cuda(sums, n, total)
+    for args, what in [((sums.double(), n, total), "float32"),
+                       ((sums[0], n, total), "float32"),
+                       ((sums, n.long(), total), "n_sel must be an int32"),
+                       ((sums, n[:, :8], total), "n_sel must be an int32"),
+                       ((sums, n, total.float()), "total must be an int32"),
+                       ((sums, n, total[:2]), "total must be an int32")]:
+        with pytest.raises(ValueError, match=what):
+            tucb.ucb_scores_cuda(*args)
+    assert tucb.launch_counts == before
+
+
 # ---------------------------------------------------------------------------
 # 2. the selection API
 # ---------------------------------------------------------------------------
