@@ -114,6 +114,21 @@ else.  Phases (every mismatch raises, so any failure exits non-zero):
      steps): exactly 26 scan launches and no attention-kernel launch per
      prefill, finite logits, prefill ms, decode tok/s, peak memory, and
      profiles of one prefill and one decode step.
+ 14. the async serving slice: (a) ``sim.async_engine.serve`` at
+     paper-baseline, K=10^4 (n_req 1000, 32 slots, cohorts and FedBuff
+     batches of 5, Poisson arrivals), 200 ticks of naive_ucb,
+     elementwise_ucb and flaky-clients with a deadline, on the card and on
+     the CPU from the same CPU-made draws: selections and counters exact,
+     times and state within rtol 1e-5, the UCB-score kernel launched once
+     a tick under naive_ucb and never otherwise; (b)
+     ``launch/serve_fl.run_serving`` on the card at K=10^4, 4000 ticks in
+     segments of 500 through the checkpoint manager, stopped after 3
+     segments and re-invoked, bitwise the uninterrupted run; ticks/s and a
+     torch.profiler trace of one segment; (c)
+     ``fl.engine.async_accuracy_run`` at full width (the paper CNN, K=100,
+     E=5, B=50, the default AsyncConfig), 6 ticks: one FedAvg-combine
+     launch per aggregating tick, seconds a tick, peak memory, finite
+     accuracy.
 
 Launch counts are zeroed before each sweep and read after it; each sweep
 must launch its kernels once per (policy, round) (the local top-S once per
@@ -2086,6 +2101,286 @@ def phase_griffin(results: dict) -> None:
     log(f"[13] phase time {time.perf_counter() - t0:.1f} s")
 
 
+# ---------------------------------------------------------------------------
+# phase 14: async bounded-staleness serving, checkpoints, the FL twin
+# ---------------------------------------------------------------------------
+
+ASYNC_TICKS = 200                 # (a): ticks of each card-against-CPU run
+ASYNC_RTOL = 1e-5                 # the card-against-CPU limit on times
+SERVE_TICKS, SERVE_SEGMENT, SERVE_CRASH = 4000, 500, 3      # (b)
+PROFILE_TICKS = 20                # (b)'s profile, run warm after (b)
+ASYNC_FL_TICKS = 6                                          # (c)
+
+
+def _async_cases():
+    """(a)'s runs: (label, scenario, policy, deadline, expected UCB-score
+    launches per tick)."""
+    return [("naive_ucb", "paper-baseline", "naive_ucb", None, 1),
+            ("elementwise_ucb", "paper-baseline", "elementwise_ucb", None, 0),
+            ("flaky", "flaky-clients", "elementwise_ucb", DEADLINE, 0)]
+
+
+def _snapshots_equal(a, b) -> bool:
+    from repro_torch.sim import async_engine as ae
+    ta, tb = ae.snapshot_tree(a), ae.snapshot_tree(b)
+    return all(torch.equal(ta[k], tb[k]) for k in ta if k != "bandit") and \
+        all(torch.equal(ta["bandit"][k], tb["bandit"][k])
+            for k in ta["bandit"])
+
+
+def phase_async_card_vs_cpu(results: dict) -> None:
+    """(a) paper-baseline at K = 10^4 (n_req 1000, 32 slots, cohorts of 5,
+    FedBuff batches of 5, Poisson arrivals): each run's CPU-made draws
+    through the card and through the CPU.  Selections and counters exact,
+    times and state within ASYNC_RTOL, kernel #4 once a tick under
+    naive_ucb and never otherwise."""
+    from repro_torch.sim import async_engine as ae
+    from repro_torch.sim import engine as sim
+    from repro_torch.sim.scenarios import get_scenario
+
+    k = 10_000
+    traces = ("selected", "admitted", "aggregated", "dropped", "failed",
+              "corrupt", "buffered", "max_staleness")
+    for label, scen_name, policy, deadline, per_tick in _async_cases():
+        scen = get_scenario(scen_name)
+        cfg = ae.AsyncConfig(n_req=1000, deadline=deadline)
+        env_np = scen.build_env(k, np.random.default_rng(0))
+        draws = [ae.draw_tick(0, t, k=k, cfg=cfg, scen=scen, policy=policy)
+                 for t in range(ASYNC_TICKS)]
+        out = {}
+        for dev in ("cpu", "cuda"):
+            env = sim.EnvArrays.from_scenario(scen, env_np, dev)
+            moved = [d.to(dev) for d in draws]
+            reset_counts()
+            if dev == "cuda":
+                torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res = ae.serve(scen, policy, n_ticks=ASYNC_TICKS, cfg=cfg,
+                           env=env, eta=1.5, draws=moved, device=dev)
+            wall = time.perf_counter() - t0
+            out[dev] = (res, launch_counts(), wall)
+        (a, ca, wa), (b, _, wb) = out["cuda"], out["cpu"]
+        where = f"[14a] {label}"
+        expect = {"ucb_score": per_tick * ASYNC_TICKS}
+        want = {**{n: 0 for n in ca}, **expect}
+        if ca != want:
+            raise AssertionError(f"{where}: launches {ca} != {want}")
+        for name in traces:
+            if not np.array_equal(getattr(a, name), getattr(b, name)):
+                raise AssertionError(f"{where}: {name} differ")
+        for name in ("dt", "elapsed"):
+            np.testing.assert_allclose(getattr(a, name), getattr(b, name),
+                                       rtol=ASYNC_RTOL, atol=0,
+                                       err_msg=f"{where} {name}")
+        ta, tb = ae.snapshot_tree(a.state), ae.snapshot_tree(b.state)
+        flat = [(n, ta[n], tb[n]) for n in ta if n != "bandit"] + [
+            (n, ta["bandit"][n], tb["bandit"][n]) for n in ta["bandit"]]
+        for name, x, y in flat:
+            x = x.cpu()
+            if x.dtype.is_floating_point:
+                torch.testing.assert_close(x, y, rtol=ASYNC_RTOL, atol=0,
+                                           msg=f"{where} state {name}")
+            elif not torch.equal(x, y):
+                raise AssertionError(f"{where}: state {name} differs")
+        if not (a.conserved() and np.isfinite(a.elapsed).all()
+                and (np.diff(a.elapsed) > 0).all()):
+            raise AssertionError(f"{where}: invariants broken")
+        if per_tick:
+            results["ucb_score"]["async_launches"] = ca["ucb_score"]
+        log(f"{where}: K={k}, {ASYNC_TICKS} ticks, card equals CPU "
+            f"(selections and counters exact, times within {ASYNC_RTOL:g}; "
+            f"max |dt| rel diff "
+            f"{float(np.max(np.abs(a.dt - b.dt) / b.dt)):.3g}); aggregated "
+            f"{int(a.aggregated.sum())}, dropped {int(a.dropped.sum())}, "
+            f"failed {int(a.failed.sum())}; card {wall_s(wa, ASYNC_TICKS)}, "
+            f"cpu {wall_s(wb, ASYNC_TICKS)} (given draws); launches {ca}")
+
+
+def wall_s(wall: float, ticks: int) -> str:
+    return (f"{ticks / wall:.1f} ticks/s ({1e3 * wall / ticks:.3f} ms a "
+            f"tick)")
+
+
+def phase_async_serving(results: dict) -> None:
+    """(b) ``launch/serve_fl.run_serving`` on the card, K = 10^4,
+    elementwise_ucb, serve_fl's defaults otherwise: SERVE_TICKS ticks in
+    segments of SERVE_SEGMENT through the checkpoint manager in a temporary
+    directory, stopped after SERVE_CRASH segments and re-invoked, against
+    an uninterrupted run without checkpoints, bitwise; a torch.profiler
+    trace of one segment."""
+    import tempfile
+
+    from repro_torch.launch import serve_fl
+
+    kw = dict(ticks=SERVE_TICKS, segment=SERVE_SEGMENT, n_clients=10_000,
+              seed=0, log=lambda *_: None)
+    straight = serve_fl.run_serving("paper-baseline", "elementwise_ucb",
+                                    **kw)
+    with tempfile.TemporaryDirectory() as d:
+        reset_counts()
+        crashed = serve_fl.run_serving("paper-baseline", "elementwise_ucb",
+                                       ckpt_dir=d, max_segments=SERVE_CRASH,
+                                       **kw)
+        lines = []
+        resumed = serve_fl.run_serving("paper-baseline", "elementwise_ucb",
+                                       ckpt_dir=d,
+                                       **{**kw, "log": lines.append})
+        check_launches("14b", {})
+    if crashed["ticks"] != SERVE_CRASH * SERVE_SEGMENT or \
+            resumed["ticks"] != SERVE_TICKS or "resumed" not in lines[0]:
+        raise AssertionError(f"[14b] crash/resume: {crashed['ticks']}, "
+                             f"{resumed['ticks']}, {lines[:1]}")
+    keys = ("sim_time", "admitted", "aggregated", "dropped", "failed",
+            "buffered")
+    if any(resumed[k] != straight[k] for k in keys) or not \
+            _snapshots_equal(resumed["state"], straight["state"]):
+        raise AssertionError("[14b] the resumed run differs from the "
+                             "uninterrupted one")
+    if not (np.isfinite(straight["sim_time"])
+            and straight["admitted"] == straight["aggregated"]
+            + straight["dropped"] + straight["failed"]
+            + straight["buffered"]):
+        raise AssertionError("[14b] counters do not add up")
+    log(f"[14b] run_serving paper-baseline elementwise_ucb K=10000, "
+        f"{SERVE_TICKS} ticks in segments of {SERVE_SEGMENT}: stopped after "
+        f"{SERVE_CRASH} segments and resumed ({lines[0].strip()}); final "
+        f"state bitwise the uninterrupted run's; sim_time "
+        f"{straight['sim_time']:.1f} s, aggregated {straight['aggregated']}, "
+        f"dropped {straight['dropped']}")
+    log(f"[14b] ticks/s: uninterrupted (no checkpoints) "
+        f"{straight['ticks_per_s']:.1f} ({1e3 / straight['ticks_per_s']:.3f} "
+        f"ms wall a tick); checkpointed segments "
+        f"{crashed['ticks_per_s']:.1f} before the crash, "
+        f"{resumed['ticks_per_s']:.1f} after the resume; "
+        f"{card_name_and_power()}")
+    profile_async_segment()
+
+
+def profile_async_segment() -> None:
+    """Where a tick's time goes: torch.profiler over PROFILE_TICKS ticks of
+    (b)'s configuration (draws included), the device's busy time per tick
+    against the profiled wall time (which the profiler's host overhead
+    lengthens: compare the busy time with (b)'s unprofiled ms a tick),
+    device operations and kernel launches per tick and the top device
+    operations."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.sim import async_engine as ae
+    n = PROFILE_TICKS       # short: the profiler's post-processing time
+    kw = dict(n_ticks=n, n_clients=10_000, seed=0, eta=1.5)   # grows with
+    torch.cuda.synchronize()                                  # its events
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        ae.serve("paper-baseline", "elementwise_ucb", **kw)
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    cuda = torch.autograd.DeviceType.CUDA
+    averages = prof.key_averages()
+    events = [(e.key, e.self_device_time_total, e.count) for e in averages
+              if e.device_type == cuda]
+    device_us = sum(t for _, t, _ in events)
+    ops = sum(c for _, _, c in events)
+    top = sorted(events, key=lambda e: -e[1])[:6]
+    launches = sum(e.count for e in averages if e.key in (
+        "cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel"))
+    log(f"[14p] profiled segment of {n} ticks (K=10000, elementwise_ucb, "
+        f"draws included): wall {wall_us / 1e3:.1f} ms, "
+        f"{wall_us / 1e3 / n:.3f} ms a tick under the profiler; device busy "
+        f"{device_us / 1e3 / n:.4f} ms a tick, "
+        f"{100 * device_us / wall_us:.1f}% of the profiled wall time (idle "
+        f"{100 * (1 - device_us / wall_us):.1f}%, the profiler's host "
+        f"overhead included); {ops / n:.0f} device "
+        f"operations and {launches / n:.0f} kernel launches a tick; top "
+        "device ops " + ", ".join(f"{k[:40]}={t / 1e3 / n:.4f} ms/tick"
+                                  for k, t, _ in top))
+
+
+def phase_async_fl(results: dict) -> None:
+    """(c) ``fl.engine.async_accuracy_run`` at full width: the paper CNN,
+    K = 100, E = 5, B = 50, 50k/10k images, eta 1.5, the default
+    AsyncConfig (32 slots: a 587 MB delta buffer), elementwise_ucb,
+    ASYNC_FL_TICKS ticks, TF32 off as in phase 8.  Kernel #5 must launch
+    once per tick that aggregates, and no other kernel."""
+    from repro_torch.fl import engine as fl
+    from repro_torch.models import cnn
+
+    saved = (torch.backends.cudnn.allow_tf32,
+             torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        cfg = cnn.CnnConfig()
+        task = fl.make_cnn_task("paper-baseline", 100, cfg=cfg,
+                                n_train=50_000, n_test=10_000,
+                                batch_size=50, device="cuda")
+        if cnn.param_count(task.params0) != N_CNN:
+            raise AssertionError("[14c] the CNN's size")
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        t0 = time.perf_counter()
+        out = fl.async_accuracy_run(
+            "paper-baseline", "elementwise_ucb", n_ticks=ASYNC_FL_TICKS,
+            task=task, cfg=cfg, epochs=5, batch_size=50, eta=1.5,
+            device="cuda")
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        aggregating = int((out["aggregated"] > 0).sum())
+        counts = check_launches("14c", {"fedavg_combine": aggregating})
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        combine_check()
+    finally:
+        torch.backends.cudnn.allow_tf32, \
+            torch.backends.cuda.matmul.allow_tf32 = saved
+    acc = out["accuracy"]
+    if not (np.isfinite(acc).all() and ((acc >= 0) & (acc <= 1)).all()
+            and aggregating > 0 and (np.diff(out["elapsed"]) > 0).all()):
+        raise AssertionError(f"[14c] traces: accuracy {acc}, aggregated "
+                             f"{out['aggregated']}")
+    results["fedavg_combine"]["async_launches"] = counts["fedavg_combine"]
+    log(f"[14c] async_accuracy_run paper CNN ({N_CNN} parameters), K=100, "
+        f"E=5, B=50, default AsyncConfig, {ASYNC_FL_TICKS} ticks in "
+        f"{wall:.2f} s: {wall / ASYNC_FL_TICKS:.3f} s a tick; peak device "
+        f"memory {peak:.2f} GiB; aggregated per tick "
+        f"{out['aggregated'].tolist()}, fedavg_combine launches "
+        f"{counts['fedavg_combine']} (one per aggregating tick); accuracy "
+        f"{np.round(acc, 4).tolist()}; {card_name_and_power()}")
+
+
+def combine_check() -> None:
+    """Kernel #5 at the FL twin's call, a [buffer_size, N] gather of the
+    delta buffer (fill slots: slot 0 at weight 0) with [buffer_size]
+    staleness weights and no grid axis, against its plain version on the
+    same card tensors: max abs error 0, as phase 6's."""
+    from repro_torch.kernels import fedavg as cuda_fedavg
+    from repro_torch.kernels import ref
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(14)
+    buf = 1e-3 * torch.randn((18, N_CNN), generator=gen, device="cuda")
+    rows = buf[torch.tensor([4, 17, 0, 0, 0], device="cuda")]
+    sw = torch.tensor([431.0, 287.5, 0.0, 0.0, 0.0], device="cuda")
+    got = cuda_fedavg.fedavg_combine_cuda(rows, sw)
+    want = ref.fedavg_combine_ref(rows, sw)
+    torch.cuda.synchronize()
+    if not torch.equal(got, want):
+        raise AssertionError("[14c] fedavg_combine at the FL twin's [C, N] "
+                             "call differs from its plain version")
+    log(f"[14c] fedavg_combine at the twin's call ({list(rows.shape)} rows, "
+        f"[5] weights, two fill slots): equal to the plain version (max abs "
+        f"err 0)")
+
+
+def phase_async(results: dict) -> None:
+    t0 = time.perf_counter()
+    for part in (phase_async_card_vs_cpu, phase_async_serving,
+                 phase_async_fl):
+        t1 = time.perf_counter()
+        part(results)
+        log(f"[14] {part.__name__} {time.perf_counter() - t1:.1f} s")
+    log(f"[14] phase time {time.perf_counter() - t0:.1f} s")
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: CUDA is not available; this script runs on "
@@ -2114,12 +2409,13 @@ def main() -> None:
     phase_hierarchy()
     phase_lm(results)
     phase_griffin(results)
+    phase_async(results)
     log(f"[done] {time.perf_counter() - t0:.1f} s")
     log(card_name_and_power())          # again, beside the results
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
             "device_ms")
-    extra = ("shapes", "split_device_ms")
+    extra = ("shapes", "split_device_ms", "async_launches")
     print(json.dumps({"kernels": [
         {**{k: r[k] for k in keys}, **{k: r[k] for k in extra if k in r}}
         for r in results.values()]}))

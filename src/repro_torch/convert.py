@@ -21,29 +21,10 @@ import torch
 from repro_torch.core.bandit import STATE_FIELDS, BanditState
 from repro_torch.sim.engine import EnvArrays
 
-_INT_FIELDS = ("n_sel", "total", "hist_n", "n_fail")
-
-
-def state_from_tree(tree: dict, device="cpu") -> BanditState:
-    """A :class:`BanditState` from a dict of arrays.  Leaves without the
-    leading [G] axis (a JAX state of one run: [K], [K, W], scalars) gain a
-    G = 1 axis; a missing ``n_fail`` (older checkpoints) starts at zero."""
-    tree = {k: np.asarray(v) for k, v in tree.items()}
-    batched = tree["n_sel"].ndim == 2
-    if "n_fail" not in tree:
-        tree["n_fail"] = np.zeros_like(tree["n_sel"], np.int32)
-    leaves = {}
-    for name in STATE_FIELDS:
-        x = tree[name]
-        if not batched:
-            x = x[None]
-        dtype = np.int32 if name in _INT_FIELDS else np.float32
-        leaves[name] = torch.tensor(np.asarray(x, dtype), device=device)
-    return BanditState(**leaves)
-
 
 def state_tree(state: BanditState, batched: bool = True) -> dict:
-    """The inverse: a dict of numpy arrays, with the [G] axis, or without it
+    """The inverse of ``core.bandit.state_from_tree``: a dict of numpy
+    arrays, with the [G] axis, or without it
     (``batched=False``; requires G = 1) in the JAX package's layout."""
     out = {name: getattr(state, name).detach().cpu().numpy()
            for name in STATE_FIELDS}

@@ -11,7 +11,8 @@ Randomness is never drawn here: the round functions take their random
 inputs (the random policy's uniforms ``rand``, the fault uniforms
 ``fault_u``) as tensors, so tests can hand both packages the same numbers.
 
-Counterparts (JAX package -> here): ``BanditState``, ``ucb_bonus_arrays``,
+Counterparts (JAX package -> here): ``BanditState``, ``state_tree`` /
+``state_from_tree``, ``cand_idx_from_mask``, ``ucb_bonus_arrays``,
 ``observe``, ``greedy_slots``, ``top_slots``, ``schedule_selected`` /
 ``schedule_gathered`` / ``schedule_completions``, ``FLAG_*``,
 ``resolve_fault``, ``censor_slots``, ``POLICY_STATS``, ``policy_kind``,
@@ -121,6 +122,60 @@ class BanditState:
 
 
 STATE_FIELDS = tuple(f.name for f in dataclasses.fields(BanditState))
+_INT_FIELDS = ("n_sel", "total", "hist_n", "n_fail")
+
+
+def state_tree(state: BanditState) -> dict:
+    """Every field of ``state`` as a dict of tensors, in the JAX package's
+    names and dtypes (``bandit_jax.state_tree``).  A state of one run
+    (G = 1) gives the JAX package's unbatched shapes ([K], [K, W],
+    scalars), a grid of G > 1 runs keeps its leading [G] axis."""
+    batched = state.n_sel.shape[0] != 1
+    return {name: getattr(state, name) if batched else getattr(state, name)[0]
+            for name in STATE_FIELDS}
+
+
+def state_from_tree(tree: dict, device="cpu") -> BanditState:
+    """The inverse of :func:`state_tree`, from tensors or anything
+    ``np.asarray`` takes.  An unbatched tree (``n_sel`` of one dimension,
+    as the JAX package's) gives a G = 1 state; a tree without ``n_fail``
+    (written before the failure layer) restores it as zeros, as
+    ``bandit_jax.state_from_tree`` does.  The leaves are copies."""
+    def leaf(x, dtype):                       # a copy, never a view
+        if isinstance(x, torch.Tensor):
+            return x.to(device=device, dtype=dtype, copy=True)
+        return torch.tensor(np.asarray(x), dtype=dtype, device=device)
+    tree = dict(tree)
+    batched = np.ndim(tree["n_sel"]) == 2
+    if "n_fail" not in tree:
+        tree["n_fail"] = np.zeros(np.shape(tree["n_sel"]), np.int32)
+    leaves = {}
+    for name in STATE_FIELDS:
+        x = leaf(tree[name], torch.int32 if name in _INT_FIELDS
+                 else torch.float32)
+        leaves[name] = x if batched else x[None]
+    return BanditState(**leaves)
+
+
+def first_true(mask: torch.Tensor, size: int, fill: int) -> torch.Tensor:
+    """Indices of the first ``size`` true entries of each row of the bool
+    ``mask`` [..., N], ascending, padded with ``fill``: ``jnp.nonzero(mask,
+    size=size, fill_value=fill)`` without a host sync.  Each true entry
+    scatters to its rank; the rest go to a spare column, cut off."""
+    rank = mask.long().cumsum(-1) - 1
+    pos = torch.where(mask & (rank < size), rank, size)
+    idx = torch.arange(mask.shape[-1], device=mask.device).expand(mask.shape)
+    out = torch.full((*mask.shape[:-1], size + 1), fill, dtype=torch.int64,
+                     device=mask.device)
+    return out.scatter(-1, pos, idx)[..., :size].to(torch.int32)
+
+
+def cand_idx_from_mask(mask: torch.Tensor, size: int) -> torch.Tensor:
+    """[..., size] int32 sorted candidate indices from a [..., K] bool mask,
+    padded with K past the last candidate (``bandit_jax.cand_idx_from_mask``):
+    the fused round's input format.  ``size`` must bound the candidate
+    count."""
+    return first_true(mask, size, mask.shape[-1])
 
 
 def ucb_bonus_arrays(n_sel: torch.Tensor, total: torch.Tensor) -> torch.Tensor:

@@ -27,12 +27,14 @@ Counterparts (JAX package -> here): ``PAPER_EPOCHS``/``PAPER_BATCH``,
 ``FlTask``/``make_cnn_task``, ``make_client_update``, ``make_evaluator``,
 ``_masked_fedavg`` -> :func:`masked_fedavg`, ``_train_round`` ->
 :func:`train_round`, the protocol rounds -> :func:`run_fl_rounds`,
-``run_replay``, ``FlSweepResult``, ``accuracy_sweep``.  The clients' epoch
-orders are an input (``order`` [.., E, cap], positions into each client's
-shard), drawn by the sweep from its ``"perm"`` stream
-(:func:`draw_orders`): the tests hand both packages the same orders.  Not
-ported yet (ROADMAP Queue 1 item 6): the async FedBuff twin, the host
-reference loop, multi-device and chunked sweeps.
+``run_replay``, ``FlSweepResult``, ``accuracy_sweep``, and the async
+FedBuff twin ``_async_fl_segment`` -> :func:`async_fl_segment`,
+``async_accuracy_run``.  The clients' epoch orders are an input (``order``
+[.., E, cap], positions into each client's shard), drawn by the sweep from
+its ``"perm"`` stream (:func:`draw_orders`): the tests hand both packages
+the same orders.  Not ported yet: the host reference loop (ROADMAP Queue
+1, "The sweep and FL entry points that still raise"), multi-device sweeps
+("Several devices") and chunked sweeps.
 """
 
 from __future__ import annotations
@@ -53,7 +55,8 @@ from repro_torch.fl import metrics
 from repro_torch.fl.aggregation import GUARD_MAX_NORM
 from repro_torch.kernels import ops
 from repro_torch.models import cnn
-from repro_torch.optim.sgd import round_lrs
+from repro_torch.optim.sgd import PAPER_LR0, PAPER_LR_DECAY, round_lrs
+from repro_torch.sim import async_engine as ae
 from repro_torch.sim import engine as sim
 from repro_torch.sim.scenarios import Scenario, get_scenario
 from repro_torch.utils.trees import (FlatSpec, flatten, tree_bytes,
@@ -187,7 +190,8 @@ def make_client_update(cfg: cnn.CnnConfig, *, epochs: int, batch_size: int):
 
     ``rows``: [M, N] flat client models, updated in place; ``idx``: [M, cap]
     shard indices; ``count``: [M] true shard sizes; ``order``: [M, E, cap]
-    positions (each epoch's shuffle); ``lr``: the round's float32 rate.
+    positions (each epoch's shuffle); ``lr``: the round's float32 rate, a
+    Python number or a 0-dim float32 tensor on the rows' device.
     Batch b of an epoch takes positions [b·B, (b+1)·B) of the order and is
     applied only by clients whose count covers it (``(b+1)·B <= count``):
     the rest keep their parameters, as the JAX package's masked scan does.
@@ -204,7 +208,8 @@ def make_client_update(cfg: cnn.CnnConfig, *, epochs: int, batch_size: int):
             m, epochs, n_b, batch_size)
         n_live = int(count.max()) // batch_size    # batches some client uses
         params = views(rows, spec)
-        lr = float(np.float32(lr))
+        if not isinstance(lr, torch.Tensor):      # a tensor stays on device
+            lr = float(np.float32(lr))
         for e in range(epochs):
             for b in range(min(n_live, n_b)):
                 bidx = batches[:, e, b]
@@ -342,11 +347,12 @@ def run_fl_rounds(task: FlTask, eta: torch.Tensor,
                   policy: str, scen: Scenario, s_round: int, hyper: float,
                   model_bits: float, epochs: int, batch_size: int,
                   cohort: str, cfg: cnn.CnnConfig, fluctuate: bool = True,
-                  fast: bool = False, deadline: float | None = None) -> dict:
+                  fast: bool = False, fused: bool = True,
+                  deadline: float | None = None) -> dict:
     """One learning-coupled round per element of ``draws`` — (RoundDraws,
     [G, K, E, cap] orders) pairs — for the [G] grid of ``eta``: the bandit
-    round (``sim.engine.RoundRunner``), local training, the combine and the
-    test accuracy.
+    round (``sim.engine.RoundRunner``; ``fused=False`` the unfused mask
+    pipeline), local training, the combine and the test accuracy.
 
     Returns a dict of ``round_times`` [G, R], ``accuracy`` [G, R],
     ``selected`` [G, R, S], ``flags`` [G, R, S] (None without a deadline)
@@ -355,7 +361,7 @@ def run_fl_rounds(task: FlTask, eta: torch.Tensor,
     runner = sim.RoundRunner(task.env, eta, policy=policy, scen=scen,
                              s_round=s_round, hyper=hyper,
                              model_bits=model_bits, fluctuate=fluctuate,
-                             fast=fast, deadline=deadline)
+                             fast=fast, fused=fused, deadline=deadline)
     spec = FlatSpec.of_tree(task.params0)
     params = flatten(task.params0, spec).expand(eta.shape[0], -1).contiguous()
     client_update = make_client_update(cfg, epochs=epochs,
@@ -496,12 +502,15 @@ def accuracy_sweep(scenario: Scenario | str = "paper-baseline",
                    epochs: int = PAPER_EPOCHS,
                    batch_size: int = PAPER_BATCH,
                    cohort: str = "all",
+                   use_kernel: bool | None = None,
                    fluctuate: bool = True,
                    model_bits: float | None = None,
                    devices=None,
                    shard: str = "grid",
                    chunk_rounds: int | None = None,
+                   fused: bool = True,
                    fast_sampling: bool | None = None,
+                   fast_perm: bool | None = None,
                    deadline: float | None = None,
                    device=None,
                    **task_kwargs) -> FlSweepResult:
@@ -516,21 +525,38 @@ def accuracy_sweep(scenario: Scenario | str = "paper-baseline",
     failure-aware layer and the result's ``flags``.  Every policy of a seed
     sees the same random draws.  The aggregation routes by device: on the
     card one ``fedavg_combine`` launch per (policy, round), and the bandit
-    round one launch of its kernel.  ``devices``, ``shard="clients"`` and
-    ``chunk_rounds`` are not ported yet and raise.
+    round one launch of its kernel.  ``fused=False`` runs the unfused mask
+    pipeline instead of the fused round, with the same results, as
+    ``sim.engine.sweep(fused=)``.  ``use_kernel`` pins the route: True asks
+    for the card's kernels and False for their plain versions, and either
+    raises on the other device (None follows the device).  ``fast_perm``
+    is moot here: the epoch orders are an input drawn by the sweep
+    (:func:`draw_orders`), not a permutation chosen in the client update;
+    it is accepted for the JAX package's signature.  ``devices``,
+    ``shard="clients"`` and ``chunk_rounds`` are not ported yet and raise.
     """
+    del fast_perm                       # moot: the orders are an input
     if devices not in (None, 0, 1):
         raise NotImplementedError("devices: multi-device accuracy sweeps are "
-                                  "not ported yet (ROADMAP Queue 1 item 8)")
+                                  "not ported yet (ROADMAP Queue 1, "
+                                  "\"Several devices\")")
     if shard != "grid":
         raise NotImplementedError("shard='clients': the client-sharded "
                                   "accuracy sweep is not ported yet (ROADMAP "
-                                  "Queue 1 item 8)")
+                                  "Queue 1, \"The sweep and FL entry points "
+                                  "that still raise\")")
     if chunk_rounds is not None:
         raise NotImplementedError("chunk_rounds: the port draws every round "
                                   "inside its loop; chunked presampling is "
-                                  "not ported (ROADMAP Queue 1 item 4)")
+                                  "not ported (ROADMAP Queue 1, \"The sweep "
+                                  "and FL entry points that still raise\")")
     device = sim.resolve_device(device)
+    # the kernels run on CUDA tensors and their plain versions on CPU ones
+    if use_kernel is not None and bool(use_kernel) != (device.type == "cuda"):
+        raise ValueError(
+            f"use_kernel={use_kernel} on {device}: the kernels run on the "
+            "card and their plain versions on the CPU; pass the matching "
+            "device or use_kernel=None")
     scen = get_scenario(scenario) if isinstance(scenario, str) else scenario
     if task is None:
         task = make_cnn_task(scen, n_clients, cfg=cfg, batch_size=batch_size,
@@ -576,7 +602,7 @@ def accuracy_sweep(scenario: Scenario | str = "paper-baseline",
             task, g_eta, draws, policy=name, scen=scen, s_round=s_round,
             hyper=hyper, model_bits=float(model_bits), epochs=epochs,
             batch_size=batch_size, cohort=cohort, cfg=cfg,
-            fluctuate=fluctuate, fast=fast, deadline=deadline))
+            fluctuate=fluctuate, fast=fast, fused=fused, deadline=deadline))
 
     def stack(key):
         return torch.stack([o[key] for o in outs]).cpu().numpy()
@@ -585,3 +611,161 @@ def accuracy_sweep(scenario: Scenario | str = "paper-baseline",
         eta=float(eta), round_times=stack("round_times"),
         accuracy=stack("accuracy"), selected=stack("selected"),
         flags=None if deadline is None else stack("flags"))
+
+
+# ---------------------------------------------------------------------------
+# Async serving twin: FedBuff-style staleness-weighted aggregation
+# ---------------------------------------------------------------------------
+
+def async_fl_segment(task: FlTask, state, buf_delta: torch.Tensor,
+                     buf_w: torch.Tensor, params: torch.Tensor,
+                     draws: Iterable, *, scen: Scenario,
+                     acfg: ae.AsyncConfig, policy: str,
+                     eta: float, model_bits: float, hyper: float,
+                     epochs: int, batch_size: int, cfg: cnn.CnnConfig,
+                     fluctuate: bool = True):
+    """The learning-coupled async ticks (``_async_fl_segment``), one per
+    element of ``draws`` (``sim.async_engine.TickDraws`` with ``orders``).
+
+    Runs the time-only ticks (``sim.async_engine.run_segment``) with a
+    model hook: the dispatched cohort trains from the current model ``params``
+    [N], its deltas park in ``buf_delta`` [n_slots + 1, N] (written in
+    place; the last row is the spare that dropped members land in) with
+    their data weights in ``buf_w`` [n_slots], and each tick the first
+    ``buffer_size`` completions apply as one FedBuff update, ``params +=
+    Σ sw·delta / Σ sw`` with ``sw = D_k (1 + staleness)**-p``.  The sum is
+    ``ops.fedavg_combine`` over ``buffer_size`` rows (fill slots gather
+    slot 0 with weight 0): one launch of the CUDA kernel on the card per
+    tick that aggregates.  lr follows the virtual round,
+    ``paper_lr(n_aggregated / buffer_size)``.  Returns ``(state,
+    buf_delta, buf_w, params, traces)``, the traces stacked to host numpy.
+    """
+    spec = FlatSpec.of_tree(task.params0)
+    client_update = make_client_update(cfg, epochs=epochs,
+                                       batch_size=batch_size)
+    evaluate = make_evaluator(cfg)
+    cnt = task.part_count.float()
+    dev = params.device
+    lr_decay = torch.tensor(PAPER_LR_DECAY, dtype=torch.float32, device=dev)
+
+    def fedbuff(st, d, sel, target, agg_slots, agg_mask, staleness):
+        nonlocal params, buf_w
+        valid = sel >= 0
+        safe = torch.where(valid, sel, 0).long()
+        # the cohort trains from the model as of dispatch; lr paces with
+        # model updates (one buffer flush ~ one sync round)
+        lr = PAPER_LR0 * torch.pow(lr_decay, bandit.fdiv(
+            st.n_aggregated.float(), acfg.buffer_size))
+        rows = params.expand(acfg.s_dispatch, -1).clone()
+        with record_function("fl.local_sgd"):
+            client_update(rows, spec, task.train_x, task.train_y,
+                          task.part_idx[safe], task.part_count[safe], lr,
+                          d.orders[safe])
+        buf_delta.index_copy_(0, target.long(), rows - params)
+        buf_w = ae.put_drop(buf_w, target, torch.where(valid, cnt[safe], 0.0))
+        with record_function("fl.aggregate"):
+            in_range = agg_slots < acfg.n_slots
+            safe_s = torch.where(in_range, agg_slots, 0).long()
+            sw = (ae.staleness_weights(staleness[safe_s],
+                                       acfg.staleness_power)
+                  * buf_w[safe_s] * in_range)
+            wsum = sw.sum()
+            if bool(agg_mask.any()):    # the tick's one host read
+                upd = ops.fedavg_combine(buf_delta[safe_s], sw)
+                params = params + torch.where(
+                    wsum > 0.0, upd / wsum.clamp_min(1e-9), 0.0)
+        with record_function("fl.evaluate"):
+            return {"accuracy": evaluate(params[None], spec, task.test_x,
+                                         task.test_y, task.test_mask)[0]}
+
+    state, traces = ae.run_segment(
+        state, draws, scen, task.env, acfg, policy=policy, eta=eta,
+        model_bits=model_bits, hyper=hyper, fluctuate=fluctuate,
+        model=fedbuff)
+    return state, buf_delta, buf_w, params, traces
+
+
+def async_accuracy_run(scenario: Scenario | str = "paper-baseline",
+                       policy: str = "elementwise_ucb",
+                       *, n_ticks: int = 50, seed: int = 0,
+                       acfg: ae.AsyncConfig | None = None,
+                       task: FlTask | None = None,
+                       n_clients: int = 100,
+                       cfg: cnn.CnnConfig = cnn.CnnConfig(),
+                       epochs: int = PAPER_EPOCHS,
+                       batch_size: int = PAPER_BATCH,
+                       eta: float = 1.5, model_bits: float | None = None,
+                       hyper: float | None = None, fluctuate: bool = True,
+                       fast_perm: bool | None = None,
+                       draws: Iterable | None = None, device=None,
+                       **task_kwargs) -> dict:
+    """Serving-mode accuracy run: the bounded-staleness async protocol
+    (``sim/async_engine.py``) coupled to local training, the port of the
+    JAX package's ``async_accuracy_run``; the arguments are its, plus
+    ``draws`` and ``device`` (None = the card; ``"cpu"`` the plain PyTorch
+    path).
+
+    Each tick dispatches a bandit-selected cohort that trains from the
+    current model; the first ``acfg.buffer_size`` completions apply as one
+    FedBuff update (:func:`async_fl_segment`).  ``draws`` (one
+    ``TickDraws`` a tick, with ``orders`` [K, E, cap]) replay given random
+    inputs; by default tick t draws ``async_engine.draw_tick(seed, t,
+    ...)`` and its orders from the tick's ``"perm"`` generator.
+    ``fast_perm`` is moot: the orders are an input.  The failure layer is
+    not part of the twin, as in the JAX package: ``acfg.deadline`` must be
+    None.  Returns per-tick ``dt``, ``elapsed``, ``accuracy``,
+    ``selected``, ``admitted``, ``aggregated``, ``dropped`` and
+    ``buffered`` traces, the final ``state`` and ``params`` (a dict in the
+    port's layout).
+    """
+    del fast_perm                       # moot, see above
+    device = sim.resolve_device(device)
+    scen = get_scenario(scenario) if isinstance(scenario, str) else scenario
+    acfg = acfg or ae.AsyncConfig()
+    if acfg.deadline is not None:
+        raise ValueError("the async FL twin has no failure layer (as the JAX "
+                         "package's); pass an AsyncConfig with deadline=None")
+    bandit.check_policy(policy)
+    if task is None:
+        task = make_cnn_task(scen, n_clients, cfg=cfg, batch_size=batch_size,
+                             device=device, **task_kwargs)
+    elif task_kwargs:
+        raise ValueError("pass either a prebuilt task or task_kwargs")
+    elif task.device != device:
+        raise ValueError(f"the task lies on {task.device}, the run on "
+                         f"{device}")
+    if acfg.s_dispatch > task.n_clients:
+        raise ValueError(f"s_dispatch={acfg.s_dispatch} exceeds "
+                         f"n_clients={task.n_clients}")
+    if hyper is None:
+        hyper = bandit.DEFAULT_HYPERS[policy]
+    if model_bits is None:
+        model_bits = 8.0 * tree_bytes(task.params0)
+
+    spec = FlatSpec.of_tree(task.params0)
+    params = flatten(task.params0, spec)
+    state = ae.AsyncState.create(task.env, acfg)
+    buf_delta = torch.zeros((acfg.n_slots + 1, params.shape[0]),
+                            device=device)
+    buf_w = torch.zeros(acfg.n_slots, device=device)
+    if draws is None:
+        k, cap = task.n_clients, task.part_idx.shape[1]
+
+        def draw(t):
+            d = ae.draw_tick(seed, t, k=k, cfg=acfg, scen=scen,
+                             policy=policy, fluctuate=fluctuate,
+                             device=device)
+            d.orders = draw_orders(ae.tick_generator(seed, "perm", t, device),
+                                   1, task.part_count, epochs, cap)[0]
+            return d
+        draws = (draw(t) for t in range(n_ticks))
+    state, _, _, params, tr = async_fl_segment(
+        task, state, buf_delta, buf_w, params, draws, scen=scen, acfg=acfg,
+        policy=policy, eta=eta, model_bits=float(model_bits),
+        hyper=float(hyper), epochs=epochs, batch_size=batch_size, cfg=cfg,
+        fluctuate=fluctuate)
+    return {"dt": tr["dt"], "elapsed": tr["now"],
+            "accuracy": tr["accuracy"], "selected": tr["selected"],
+            "admitted": tr["admitted"], "aggregated": tr["aggregated"],
+            "dropped": tr["dropped"], "buffered": tr["buffered"],
+            "state": state, "params": unflatten(params, spec)}

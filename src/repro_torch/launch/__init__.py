@@ -1,1 +1,1 @@
-"""Port of ``repro.launch``: the serving entry point."""
+"""Port of ``repro.launch``: the serving entry points."""

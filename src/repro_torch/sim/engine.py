@@ -619,8 +619,9 @@ def sweep(scenario: Scenario | str = "paper-baseline",
     (ValueError).
 
     Not ported: ``devices`` > 1 with ``shard="grid"`` and the placement of
-    blocks on several cards (ROADMAP Queue 1 item 12), and
-    ``chunk_rounds`` (Queue 1 item 4); both raise NotImplementedError.
+    blocks on several cards (ROADMAP Queue 1, "Several devices"), and
+    ``chunk_rounds`` (Queue 1, "The sweep and FL entry points that still
+    raise"); both raise NotImplementedError.
     """
     if shard not in ("grid", "clients"):
         raise ValueError(f"unknown shard mode {shard!r}")
@@ -636,12 +637,13 @@ def sweep(scenario: Scenario | str = "paper-baseline",
     if n_shards and shard == "grid":
         raise NotImplementedError(
             "devices > 1 with shard='grid': placing grid points on several "
-            "cards is not ported yet (ROADMAP Queue 1 item 12); "
+            "cards is not ported yet (ROADMAP Queue 1, \"Several devices\"); "
             "shard='clients' runs P client blocks on one card")
     if chunk_rounds is not None:
         raise NotImplementedError("chunk_rounds: the port draws every round "
                                   "inside its loop; chunked presampling is "
-                                  "not ported (ROADMAP Queue 1 item 4)")
+                                  "not ported (ROADMAP Queue 1, \"The sweep "
+                                  "and FL entry points that still raise\")")
     device = resolve_device(device)
     scenario = get_scenario(scenario) if isinstance(scenario, str) else scenario
     if s_round > n_clients:

@@ -119,3 +119,93 @@ def rel_l2(a, b) -> float:
     a = np.asarray(a, np.float64).ravel()
     b = np.asarray(b, np.float64).ravel()
     return float(np.linalg.norm(a - b) / np.linalg.norm(b))
+
+
+# ---------------------------------------------------------------------------
+# Async slice: the JAX package's per-tick draws as the port's TickDraws
+# ---------------------------------------------------------------------------
+
+def jax_tick_draws(scen_name: str, cfg, seed: int, n: int, k: int, *,
+                   perm: dict | None = None) -> list:
+    """The random inputs JAX's async tick draws from ``tick_keys(seed, n,
+    0, n)``, as the port's ``TickDraws`` (CPU tensors): the candidate mask
+    and the Eq. (8) uniforms (``poll_inputs``), the Poisson arrival count,
+    the random policy's uniforms and the fault uniforms (both from the
+    ``"pol"`` key) and the congestion normals.  The churn draws become the
+    port's four uniforms: the victim's ``randint`` j as (j + 0.5) / K.
+    ``perm`` = dict(counts=, cap=, epochs=, native=) adds every client's
+    epoch orders from the FL twin's ``"perm"`` keys (:func:`jax_orders`).
+    """
+    import jax
+    import jax.numpy as jnp
+    import torch
+
+    from repro.core import bandit_jax
+    from repro.sim import async_engine as jae
+    from repro.sim import engine_jax
+    from repro.sim.scenarios import get_scenario
+    from repro_torch.sim.async_engine import TickDraws
+
+    scen = get_scenario(scen_name)
+    keys = jae.tick_keys(seed, n, 0, n, perm=perm is not None)
+    fault = bandit_jax.resolve_fault(scen.fault, cfg.deadline)
+
+    def one(kk, t):
+        d = {"cand_mask": engine_jax._cand_masks_from_keys(
+                 kk["cand"][None], k, cfg.n_req)[0],
+             "u_time": jnp.stack([jax.random.uniform(kk["theta"], (k,)),
+                                  jax.random.uniform(kk["gamma"], (k,))]),
+             "rand": jax.random.uniform(kk["pol"], (k,))}
+        if cfg.arrival == "full":
+            d["n_arr"] = jnp.int32(cfg.s_dispatch)
+        else:
+            lam = cfg.arrival_rate * engine_jax.scenario_diurnal_mult(
+                scen, (t + 1)[None])[0]
+            d["n_arr"] = jax.random.poisson(kk["arr"], lam).astype(jnp.int32)
+        if fault is not None:
+            d["fault_u"] = bandit_jax.fault_uniforms(kk["pol"],
+                                                     cfg.s_dispatch)
+        if scen.congestion_cells > 0 and scen.congestion_sigma > 0.0:
+            d["cong"] = jax.random.normal(kk["cong"],
+                                          (scen.congestion_cells,))
+        if scen.churn_prob > 0.0:
+            kc1, kc2, kc3, kc4 = jax.random.split(kk["churn"], 4)
+            j = jax.random.randint(kc2, (), 0, k)
+            d["churn"] = jnp.stack([
+                jax.random.uniform(kc1), (j.astype(jnp.float32) + 0.5) / k,
+                jax.random.uniform(kc3), jax.random.uniform(kc4)])
+        return d
+
+    out = jax.vmap(jax.jit(one))(keys, jnp.arange(n, dtype=jnp.int32))
+    out = {name: np.asarray(v) for name, v in out.items()}
+    if perm is not None:
+        out["orders"] = np.stack([jax_orders(
+            keys["perm"][t], np.arange(k), perm["counts"], perm["cap"],
+            perm["epochs"], perm["native"]) for t in range(n)])
+    return [TickDraws(**{name: torch.tensor(np.array(v[t]))
+                         for name, v in out.items()}) for t in range(n)]
+
+
+def async_trees_match(port_state, jax_state, rtol: float,
+                      msg: str = "") -> None:
+    """An async state of the port against the JAX package's, field by
+    field through their snapshot trees: integers exactly, floats within
+    ``rtol``."""
+    import jax
+
+    from repro.sim import async_engine as jae
+    from repro_torch.sim import async_engine as ae
+
+    want = jax.tree.map(np.asarray, jae.snapshot_tree(jax_state))
+    got = ae.snapshot_tree(port_state)
+    for name, w in want.items():
+        pairs = (w.items() if name == "bandit" else [(name, w)])
+        sub = got["bandit"] if name == "bandit" else got
+        for leaf, wv in pairs:
+            gv = sub[leaf].cpu().numpy()
+            if np.issubdtype(wv.dtype, np.integer):
+                np.testing.assert_array_equal(gv, wv,
+                                              err_msg=f"{leaf} {msg}")
+            else:
+                np.testing.assert_allclose(gv, wv, rtol=rtol, atol=0,
+                                           err_msg=f"{leaf} {msg}")

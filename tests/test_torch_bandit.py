@@ -29,7 +29,7 @@ def _states(seed=0):
     rng = np.random.default_rng(seed)
     trees = [mid_run_tree(rng, K) for _ in range(G)]
     return ([bandit_jax.state_from_tree(t) for t in trees],
-            convert.state_from_tree(stack_trees(trees)), rng)
+            bandit.state_from_tree(stack_trees(trees)), rng)
 
 
 def test_convert_round_trip():
@@ -39,7 +39,7 @@ def test_convert_round_trip():
         for name, want in jax_tree(js).items():
             np.testing.assert_array_equal(back[name][g], want, name)
             assert back[name].dtype == want.dtype, name
-    one = convert.state_from_tree(jax_tree(jstates[1]))
+    one = bandit.state_from_tree(jax_tree(jstates[1]))
     assert one.n_sel.shape == (1, K) and one.total.shape == (1,)
     single = convert.state_tree(one, batched=False)
     np.testing.assert_array_equal(single["hist_ud"],

@@ -282,6 +282,31 @@ def test_cohorts_of_the_sweep_agree(tasks):
     np.testing.assert_allclose(a.accuracy, b.accuracy, atol=1e-3)
 
 
+@pytest.mark.parametrize("scen", ["paper-baseline", "flaky-clients"])
+def test_fused_and_unfused_sweeps_agree(tasks, scen):
+    """``fused=False`` (the JAX package's argument) runs the unfused mask
+    pipeline: the same selections, flags and models as the fused round;
+    ``use_kernel=False`` and ``fast_perm`` are accepted on the CPU, and
+    ``use_kernel=True`` asks for the card."""
+    _, tt = tasks
+    kw = dict(policies=("elementwise_ucb", "random", "naive_ucb"),
+              seeds=(0, 3), n_rounds=3, cohort="selected",
+              deadline=2.0 if scen == "flaky-clients" else None)
+    engine_kw = dict(task=tt, cfg=cnn_configs(SMALL_CNN, False)[1],
+                     s_round=3, frac_request=0.5, epochs=1, batch_size=10,
+                     device="cpu")
+    a = engine.accuracy_sweep(scen, **kw, **engine_kw)
+    b = engine.accuracy_sweep(scen, fused=False, use_kernel=False,
+                              fast_perm=True, **kw, **engine_kw)
+    np.testing.assert_array_equal(a.selected, b.selected)
+    np.testing.assert_allclose(a.round_times, b.round_times, rtol=1e-6)
+    np.testing.assert_array_equal(a.accuracy, b.accuracy)
+    if scen == "flaky-clients":
+        np.testing.assert_array_equal(a.flags, b.flags)
+    with pytest.raises(ValueError, match="use_kernel"):
+        engine.accuracy_sweep(scen, use_kernel=True, **kw, **engine_kw)
+
+
 def test_flaky_sweep_fault_counts_partition(tasks):
     _, tt = tasks
     res = engine.accuracy_sweep(

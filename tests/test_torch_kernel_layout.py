@@ -33,7 +33,6 @@ torch = pytest.importorskip("torch")
 from _torch_parity import (mid_run_tree, sorted_candidates,  # noqa: E402
                            stack_trees)
 
-from repro_torch import convert  # noqa: E402
 from repro_torch.core import bandit  # noqa: E402
 from repro_torch.kernels import fedavg  # noqa: E402
 from repro_torch.sim.truncnorm import truncnorm_transform  # noqa: E402
@@ -327,7 +326,7 @@ def kernel_select(kind, a, b, valid, s_round):
 def test_emulated_kernel_select_matches_plain_round(policy, c):
     g, k, s_round = 3, 600, 12
     rng = np.random.default_rng(len(policy) + c)
-    state = convert.state_from_tree(stack_trees(
+    state = bandit.state_from_tree(stack_trees(
         [mid_run_tree(rng, k) for _ in range(g)]))
     cand = torch.from_numpy(sorted_candidates(rng, g, k, c, n_valid=c - 3))
     safe = torch.where(cand < k, cand, 0).long()

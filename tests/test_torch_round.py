@@ -118,7 +118,7 @@ def test_round_matches_jax(policy, sliced, failure):
     rng = np.random.default_rng(11)
     trees = [mid_run_tree(rng, K) for _ in range(G)]
     jstates = [bandit_jax.state_from_tree(t) for t in trees]
-    pstate = convert.state_from_tree(stack_trees(trees))
+    pstate = bandit.state_from_tree(stack_trees(trees))
     for r in range(R):
         pout = _port_round(policy, sliced, failure, pstate, d, r)
         pstate = pout[0]
@@ -143,7 +143,7 @@ def test_round_matches_pallas_interpret():
     policy = "elementwise_ucb"
     d = _inputs(policy, False, seed=3)
     tree = mid_run_tree(np.random.default_rng(5), K)
-    pstate = convert.state_from_tree(tree)
+    pstate = bandit.state_from_tree(tree)
     jst = bandit_jax.state_from_tree(tree)
     fault = JAX_SCENARIOS["flaky-clients"].fault.probs
     kern = jax.jit(lambda st, cand, tu, tl, fu: jops.bandit_round(

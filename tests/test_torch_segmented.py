@@ -200,9 +200,9 @@ def test_segmented_round_matches_jax(policy, p, failure):
     seg = bandit.make_segmented_round_fn(policy, S, n_shards=p, fault=fault,
                                          deadline=deadline)
     t = torch.from_numpy
-    state = sharding.shard_state(convert.state_from_tree(stack_trees(trees)),
+    state = sharding.shard_state(bandit.state_from_tree(stack_trees(trees)),
                                  p)
-    flat = convert.state_from_tree(stack_trees(trees))
+    flat = bandit.state_from_tree(stack_trees(trees))
     jround = _jax_round(policy, p, failure)
     jstates = [_blocks(tr, p) for tr in trees]
     for r, d in enumerate(rounds):
@@ -294,7 +294,7 @@ def test_sharding_helpers():
     assert sharding.even_shards(96, None) is None
     x = torch.arange(12).view(1, 12)
     assert sharding.shard_leading(x, 3, 1)[0, 1].tolist() == [4, 5, 6, 7]
-    state = convert.state_from_tree(stack_trees(
+    state = bandit.state_from_tree(stack_trees(
         [mid_run_tree(np.random.default_rng(i), 12) for i in range(2)]))
     blocks = sharding.shard_state(state, 3)
     assert blocks.n_sel.shape == (6, 4) and blocks.hist_ud.shape == (6, 4, 5)

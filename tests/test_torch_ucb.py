@@ -26,7 +26,6 @@ from _torch_parity import (mid_run_tree, sorted_candidates,  # noqa: E402
 from repro.core import bandit_jax  # noqa: E402
 from repro.kernels import ref as jref  # noqa: E402
 from repro.kernels.ucb_score import ucb_scores as jucb_pallas  # noqa: E402
-from repro_torch import convert  # noqa: E402
 from repro_torch.core import bandit  # noqa: E402
 from repro_torch.kernels import ops, ref  # noqa: E402
 
@@ -125,7 +124,7 @@ def _jstate(tree):
                                 "random", "oracle"])
 def test_select_index_api_matches_jax(fn):
     trees, cands, ud, ul, keys, rand = _states()
-    state = convert.state_from_tree(stack_trees(trees))
+    state = bandit.state_from_tree(stack_trees(trees))
     c = torch.from_numpy(cands)
     port = {
         "elementwise": lambda: bandit.select_elementwise(state, c, S, 40.0),
@@ -167,7 +166,7 @@ def test_select_index_api_matches_jax(fn):
 @pytest.mark.parametrize("policy", bandit.POLICY_NAMES)
 def test_mask_select_fns_match_jax(policy):
     trees, cands, ud, ul, keys, rand = _states(seed=2)
-    state = convert.state_from_tree(stack_trees(trees))
+    state = bandit.state_from_tree(stack_trees(trees))
     mask = bandit.candidate_mask(K, torch.from_numpy(cands))
     hyper = bandit.DEFAULT_HYPERS[policy]
     fn = bandit.make_select_fn(policy, S)
@@ -189,7 +188,7 @@ def test_mask_select_fns_match_jax(policy):
 
 def test_select_random_from_a_generator():
     trees, cands, *_ = _states(seed=3)
-    state = convert.state_from_tree(stack_trees(trees))
+    state = bandit.state_from_tree(stack_trees(trees))
     gen = torch.Generator().manual_seed(5)
     sel = bandit.select_random(state, torch.from_numpy(cands), S, gen)
     for g in range(G):
@@ -202,7 +201,7 @@ def test_select_random_from_a_generator():
 def test_select_pads_when_candidates_run_out():
     """Fewer candidates than S: -1 padding, as in the JAX package."""
     trees, *_ = _states(seed=4)
-    state = convert.state_from_tree(stack_trees(trees))
+    state = bandit.state_from_tree(stack_trees(trees))
     cands = torch.tensor([[3, 9], [0, 149], [5, 6]], dtype=torch.int32)
     for fn in (lambda: bandit.select_naive(state, cands, 4),
                lambda: bandit.select_elementwise(state, cands, 4)):
