@@ -129,6 +129,26 @@ else.  Phases (every mismatch raises, so any failure exits non-zero):
      E=5, B=50, the default AsyncConfig), 6 ticks: one FedAvg-combine
      launch per aggregating tick, seconds a tick, peak memory, finite
      accuracy.
+ 15. the training slice: (a) one loss and gradient of reduced smollm-135m
+     (f32 and bf16 compute) and reduced recurrentgemma-9b (f32) at S = 1100
+     through the kernels' autograd Functions against the plain route on
+     the same card tensors: every gradient finite, non-zero where the
+     plain one is, within GRAD_LIMIT (relative L2), the attention kernel
+     launched once a layer and the scan twice a recurrent layer (forward,
+     and backward on reversed inputs); (b) ``launch.steps.make_train_step``
+     at smollm-135m's full width, AdamW (lr 3e-4, weight decay 0.1), 4 x
+     4096 tokens (train_4k's S; its global batch of 256 cut to one card's
+     4), remat on: one warm-up and 3 timed steps, seconds a step, tokens/s,
+     peak memory, 60 bf16 attention launches a step, finite losses, and a
+     profile of one step; (c) ``launch.train --arch cifar-cnn`` at full
+     width (K=100, 50k/10k images, E=5, B=50), 3 rounds checkpointed every
+     round, then resumed from round 2: selections, elapsed time and
+     parameters bitwise the straight run's (and again with ``--fast``,
+     whose weights stay finite), one FedAvg-combine launch a round; (d)
+     ``launch.train`` with reduced smollm-135m (2 rounds) and
+     recurrentgemma-9b (1 round) on the card and the CPU: every loss within
+     LM_LOSS_RTOL on the same batches; (e) ``launch.train --arch none`` on
+     the card and the CPU: the same lines.
 
 Launch counts are zeroed before each sweep and read after it; each sweep
 must launch its kernels once per (policy, round) (the local top-S once per
@@ -1782,14 +1802,18 @@ def phase_lm_card_vs_cpu(results: dict) -> None:
 
 
 def profile_device(label: str, fn, steps: int = 1, tag: str = "12p", *,
-                   kernel: str) -> None:
+                   kernel: str, inference: bool = True, top_n: int = 5) -> None:
     """Where ``steps`` warm calls of ``fn`` spend their time (torch.profiler):
     wall time per call, device busy share (the part of it in device kernels
     whose name holds ``kernel``), device kernels per call and the top
-    device operations."""
+    device operations; under ``torch.inference_mode`` unless ``inference``
+    is False (a train step)."""
+    import contextlib
+
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
-    with torch.inference_mode(), profile(
+    mode = torch.inference_mode() if inference else contextlib.nullcontext()
+    with mode, profile(
             activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for _ in range(steps):
@@ -1802,7 +1826,7 @@ def profile_device(label: str, fn, steps: int = 1, tag: str = "12p", *,
     device_us = sum(t for _, t, _ in events)
     kernel_us = sum(t for k, t, _ in events if kernel in k)
     kernels = sum(n for _, _, n in events)
-    top = sorted(events, key=lambda e: -e[1])[:5]
+    top = sorted(events, key=lambda e: -e[1])[:top_n]
     log(f"[{tag}] profiled {label}: wall {wall_us / 1e3 / steps:.1f} ms per "
         f"call, device busy {100 * device_us / wall_us:.1f}% ({kernel} "
         f"{100 * kernel_us / wall_us:.1f}%), idle "
@@ -2381,6 +2405,366 @@ def phase_async(results: dict) -> None:
     log(f"[14] phase time {time.perf_counter() - t0:.1f} s")
 
 
+# ---------------------------------------------------------------------------
+# phase 15: training — gradients through kernels #6 and #7, the full-width
+# smollm-135m train step, launch/train.py's FL loop
+# ---------------------------------------------------------------------------
+
+GRAD_SEQ = 1100                   # (a): S >= 1024 and no multiple of 64
+GRAD_LIMIT = {"float32": 1e-4, "bfloat16": 5e-2}   # (a): relative L2
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 4, 4096, 3   # (b): train_4k's S
+CNN_ROUNDS, CNN_RESUME_AT = 3, 2                   # (c)
+LM_LOSS_RTOL = 5e-3               # (d): card against CPU, bf16 compute
+
+
+def _plain_route():
+    """A context in which kernels/ops.py sends CUDA tensors to the plain
+    versions (the autograd Functions stay: their backward is already
+    plain for attention, and the reversed scan then runs the plain loop)."""
+    import contextlib
+
+    from repro_torch.kernels import ops, ref
+
+    @contextlib.contextmanager
+    def ctx():
+        saved = ops._flash_forward, ops._rg_forward
+        ops._flash_forward = ref.flash_attention_ref
+        ops._rg_forward = ref.rg_lru_ref
+        try:
+            yield
+        finally:
+            ops._flash_forward, ops._rg_forward = saved
+    return ctx()
+
+
+def _rel_l2(a: torch.Tensor, b: torch.Tensor) -> float:
+    a, b = a.double().cpu(), b.double().cpu()
+    return float((a - b).norm() / b.norm().clamp_min(1e-300))
+
+
+def phase_train_grads(results: dict) -> None:
+    """(a) One loss and gradient of reduced smollm-135m (f32 and bf16
+    compute) and reduced recurrentgemma-9b (f32) at S = GRAD_SEQ on the
+    card through the kernels, against the plain route on the same card
+    tensors: every parameter's gradient finite, non-zero where the plain
+    one is, within GRAD_LIMIT (relative L2); the attention kernel launched
+    once per layer, the scan twice per recurrent layer (forward, and the
+    backward on reversed inputs)."""
+    import dataclasses
+    import functools
+
+    from repro_torch.launch.steps import value_and_grad
+    from repro_torch.models.registry import build
+    from repro_torch.utils.trees import tree_leaves
+
+    cases = [("smollm-135m", "float32"), ("smollm-135m", "bfloat16"),
+             ("recurrentgemma-9b", "float32")]
+    for arch, dtype in cases:
+        api = build(arch, reduced=True)
+        cfg = dataclasses.replace(api.cfg, compute_dtype=getattr(torch,
+                                                                  dtype))
+        if cfg.remat:
+            raise AssertionError(f"[15a] {arch} reduced sets remat")
+        loss_fn = functools.partial(api.loss_fn.func, cfg=cfg)
+        params = _to(api.init(torch.Generator().manual_seed(15)), "cuda")
+        toks = np.random.default_rng(15).integers(0, cfg.vocab,
+                                                  (2, GRAD_SEQ))
+        batch = {"tokens": torch.tensor(toks, dtype=torch.int32,
+                                         device="cuda")}
+        reset_counts()
+        loss_k, grads_k = value_and_grad(loss_fn, params, batch)
+        torch.cuda.synchronize()
+        if arch == "smollm-135m":
+            name = FLASH_VARIANT[dtype][0]
+            expect = {name: cfg.n_layers}
+        else:
+            n_rec = 2 * (cfg.n_layers // 3) + cfg.n_layers % 3
+            expect = {"rg_lru_scan": 2 * n_rec}
+        counts = check_launches("15a", expect)
+        with _plain_route():
+            loss_p, grads_p = value_and_grad(loss_fn, params, batch)
+        check_launches("15a", expect)          # the plain route: none more
+        worst, zero = 0.0, 0
+        for i, (gk, gp) in enumerate(zip(tree_leaves(grads_k),
+                                         tree_leaves(grads_p))):
+            if not bool(torch.isfinite(gk).all()):
+                raise AssertionError(f"[15a] {arch} {dtype}: leaf {i} "
+                                     f"gradient not finite")
+            if float(gp.float().norm()) == 0.0:
+                zero += 1
+                continue
+            if float(gk.float().norm()) == 0.0:
+                raise AssertionError(f"[15a] {arch} {dtype}: leaf {i} has "
+                                     f"no gradient through the kernel")
+            worst = max(worst, _rel_l2(gk.float(), gp.float()))
+        if worst > GRAD_LIMIT[dtype]:
+            raise AssertionError(f"[15a] {arch} {dtype}: gradient relative "
+                                 f"L2 {worst:.3g} > {GRAD_LIMIT[dtype]}")
+        if arch != "smollm-135m":
+            results["rg_lru_scan"]["train_launches"] = counts["rg_lru_scan"]
+        log(f"[15a] reduced {arch}, {dtype}, S={GRAD_SEQ}, batch 2: loss "
+            f"kernel route {float(loss_k):.6f}, plain route "
+            f"{float(loss_p):.6f}; {len(tree_leaves(grads_k))} gradient "
+            f"leaves finite, worst relative L2 against the plain route "
+            f"{worst:.3g} (limit {GRAD_LIMIT[dtype]:g}; {zero} leaves zero "
+            f"on both routes); launches {expect}")
+
+
+def phase_train_step(results: dict) -> None:
+    """(b) ``launch.steps.make_train_step`` at smollm-135m's full width
+    (30 layers, remat on, bf16 compute, f32 parameters), AdamW lr 3e-4,
+    weight decay 0.1, at train_4k's S = 4096 with batch 4 (its global
+    batch of 256 cut to one card's 4): one warm-up step, then TRAIN_STEPS
+    timed steps; each step must launch the bf16 attention kernel twice per
+    layer (the forward, and remat's recompute) and no other kernel."""
+    from repro_torch.configs.shapes import SHAPES
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models.registry import build
+    from repro_torch.optim.sgd import OptimizerConfig
+
+    cell = SHAPES["train_4k"]
+    if cell.seq_len != TRAIN_SEQ:
+        raise AssertionError("[15b] train_4k's sequence length")
+    api = build("smollm-135m", reduced=False)
+    cfg = api.cfg
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(0)
+    params = api.init(gen)
+    step, opt = make_train_step(api, OptimizerConfig(
+        name="adamw", lr=3e-4, weight_decay=0.1))
+    state = opt.init(params)
+    rng = np.random.default_rng(0)
+    batches = [{"tokens": torch.tensor(
+        rng.integers(0, cfg.vocab, (TRAIN_BATCH, TRAIN_SEQ)),
+        dtype=torch.int32, device="cuda")} for _ in range(TRAIN_STEPS + 1)]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params, state, loss = step(params, state, batches[0])
+    torch.cuda.synchronize()
+    warm = time.perf_counter() - t0
+    losses = [float(loss)]
+    reset_counts()
+    t0 = time.perf_counter()
+    for b in batches[1:]:
+        params, state, loss = step(params, state, b)
+        losses.append(float(loss))
+    torch.cuda.synchronize()
+    dt = (time.perf_counter() - t0) / TRAIN_STEPS
+    per_step = 2 * cfg.n_layers if cfg.remat else cfg.n_layers
+    counts = check_launches("15b", {"flash_attention_wgmma":
+                                    per_step * TRAIN_STEPS})
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    if not (all(math.isfinite(x) for x in losses)
+            and int(state["step"]) == TRAIN_STEPS + 1):
+        raise AssertionError(f"[15b] losses {losses}, step "
+                             f"{int(state['step'])}")
+    results["flash_attention_wgmma"]["train_launches"] = \
+        counts["flash_attention_wgmma"] // TRAIN_STEPS
+    holder = {"p": params, "s": state}
+
+    def one_step():
+        holder["p"], holder["s"], _ = step(holder["p"], holder["s"],
+                                           batches[0])
+    profile_device("full-width AdamW train step (4 x 4096)", one_step,
+                   tag="15p", kernel="flash_attention_wgmma_kernel",
+                   inference=False, top_n=8)
+    n_params = sum(t.numel() for t in _leaves(params))
+    log(f"[15b] smollm-135m full width ({n_params} parameters, remat "
+        f"{cfg.remat}), AdamW train step at batch {TRAIN_BATCH} x "
+        f"{TRAIN_SEQ} (train_4k's global batch {cell.global_batch} cut to "
+        f"{TRAIN_BATCH} for one card): {dt:.4f} s a step, "
+        f"{TRAIN_BATCH * TRAIN_SEQ / dt:.0f} tokens/s (warm-up step "
+        f"{warm:.2f} s); peak device memory {peak:.2f} GiB; bf16 attention "
+        f"kernel launches {counts['flash_attention_wgmma'] // TRAIN_STEPS} a "
+        f"step; losses {[round(x, 5) for x in losses]}; "
+        f"{card_name_and_power()}")
+    del params, state, batches, holder
+    torch.cuda.empty_cache()
+
+
+def _train_main(argv: list[str]):
+    """``launch.train.main`` with its printed lines captured."""
+    import contextlib
+    import io
+
+    from repro_torch.launch import train
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        out = train.main(argv)
+    return out, buf.getvalue().splitlines()
+
+
+def _same_bits(a: torch.Tensor, b: torch.Tensor) -> bool:
+    """Bitwise equality of two float32 tensors, NaN payloads included."""
+    return torch.equal(a.view(torch.int32), b.view(torch.int32))
+
+
+def _cnn_resume(argv: list[str], rounds: int, label: str):
+    """``launch.train`` for ``rounds`` rounds checkpointed every round,
+    then the checkpoints after CNN_RESUME_AT deleted and ``--resume`` run:
+    its selections, elapsed time and parameters (bitwise) must equal the
+    straight run's; one FedAvg-combine launch a round, no other kernel.
+    Returns (straight run, its lines, the resumed run's lines, wall s,
+    peak GiB)."""
+    import shutil
+    import tempfile
+
+    from repro_torch.utils.trees import tree_leaves
+    with tempfile.TemporaryDirectory() as d:
+        argv = argv + ["--rounds", str(rounds), "--ckpt-dir", d,
+                       "--ckpt-every", "1"]
+        reset_counts()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        straight, lines = _train_main(argv)
+        wall = time.perf_counter() - t0
+        check_launches(label, {"fedavg_combine": rounds})
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        for step in range(CNN_RESUME_AT + 1, rounds + 1):
+            shutil.rmtree(Path(d) / f"ckpt_{step:08d}")
+        reset_counts()
+        resumed, rlines = _train_main(argv + ["--resume"])
+        check_launches(label, {"fedavg_combine": rounds - CNN_RESUME_AT})
+    sa, sb = straight["server"], resumed["server"]
+    pa = tree_leaves(straight["trainer"].params)
+    pb = tree_leaves(resumed["trainer"].params)
+    checks = {
+        "start": resumed["start"] == CNN_RESUME_AT,
+        "selections": [r.selected for r in sa.history[CNN_RESUME_AT:]]
+        == [r.selected for r in sb.history],
+        "elapsed": sa.elapsed == sb.elapsed,
+        "parameters": all(_same_bits(a, b) for a, b in zip(pa, pb))}
+    if not all(checks.values()):
+        raise AssertionError(f"[{label}] the resumed run differs from the "
+                             f"straight one: {checks}")
+    return straight, lines, rlines, wall, peak
+
+
+def phase_train_cnn(results: dict) -> None:
+    """(c) ``launch.train --arch cifar-cnn`` at full width on the card (the
+    paper CNN, K = 100, 50k/10k images, E = 5, B = 50) for CNN_ROUNDS
+    rounds, stopped and resumed (:func:`_cnn_resume`).  The paper's recipe
+    sends this model to non-finite weights within a client's first epoch
+    (ROADMAP, the reference's hazards), so the same check runs again with
+    ``--fast`` (5000 images, one epoch), whose weights stay finite.  cuDNN
+    runs deterministic here, so that two runs of a round agree bit for
+    bit."""
+    from repro_torch.utils.trees import tree_leaves
+    saved = (torch.backends.cudnn.deterministic,
+             torch.backends.cudnn.benchmark)
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    try:
+        full, lines, rlines, wall, peak = _cnn_resume(
+            ["--arch", "cifar-cnn", "--clients", "100"], CNN_ROUNDS, "15c")
+        fast, _, _, fast_wall, _ = _cnn_resume(
+            ["--arch", "cifar-cnn", "--clients", "100", "--fast"],
+            CNN_ROUNDS, "15c fast")
+    finally:
+        torch.backends.cudnn.deterministic, \
+            torch.backends.cudnn.benchmark = saved
+    if not all(bool(torch.isfinite(x).all())
+               for x in tree_leaves(fast["trainer"].params)):
+        raise AssertionError("[15c] --fast: non-finite parameters")
+    acc = full["trainer"].accuracy()
+    if not 0.0 <= acc <= 1.0:
+        raise AssertionError(f"[15c] accuracy {acc}")
+    leaves = tree_leaves(full["trainer"].params)
+    bad = sum(int((~torch.isfinite(x)).sum()) for x in leaves)
+    n = sum(x.numel() for x in leaves)
+    results["fedavg_combine"]["train_launches"] = CNN_ROUNDS
+    rs = full["round_s"]
+    log(f"[15c] launch.train --arch cifar-cnn, K=100, {CNN_ROUNDS} rounds "
+        f"(E=5, B=50, 50k/10k images) in {wall:.2f} s with set-up: "
+        f"{statistics.mean(rs):.3f} s a round (rounds "
+        f"{[round(x, 3) for x in rs]}, the test accuracy of each round "
+        f"included); peak device memory {peak:.2f} GiB; fedavg_combine "
+        f"launches {CNN_ROUNDS} (one a round); test accuracy {acc:.4f}, "
+        f"{bad} of {n} parameters non-finite"
+        f"{' (the recipe collapses the model)' if bad else ''}; "
+        f"{rlines[0].strip()}: selections, elapsed time and parameters "
+        f"(bitwise) equal to the straight run's; {card_name_and_power()}")
+    log(f"[15c] --fast (5000 images, one epoch), {CNN_ROUNDS} rounds in "
+        f"{fast_wall:.2f} s: parameters finite, test accuracy "
+        f"{fast['trainer'].accuracy():.4f}, the resumed run bitwise the "
+        f"straight one")
+    for line in lines:
+        log(f"[15c]   {line}")
+
+
+def phase_train_lm(results: dict) -> None:
+    """(d) ``launch.train`` with the reduced LMs (bf16 compute, seq 64, 4
+    SGD steps of lr 0.5 a client): smollm-135m for 2 rounds and
+    recurrentgemma-9b for 1, on the card and on the CPU: the same batches,
+    every step's loss within LM_LOSS_RTOL, the same selections.  FedAvg
+    once a round; no attention launch (S < 1024); the scan twice per
+    recurrent layer a step and once per layer in each no-grad pass."""
+    for arch, rounds in (("smollm-135m", 2), ("recurrentgemma-9b", 1)):
+        argv = ["--arch", arch, "--rounds", str(rounds)]
+        reset_counts()
+        t0 = time.perf_counter()
+        card, _ = _train_main(argv)
+        wall = time.perf_counter() - t0
+        tr = card["trainer"]
+        cfg = tr.api.cfg
+        n_rec = (2 * (cfg.n_layers // 3) + cfg.n_layers % 3
+                 if cfg.family == "griffin" else 0)
+        steps = len(tr.loss_log)
+        evals = rounds // max(rounds // 10, 1)       # accuracy() calls
+        expect = {"fedavg_combine": rounds}
+        if n_rec:
+            expect["rg_lru_scan"] = n_rec * (2 * steps + evals)
+        counts = check_launches("15d", expect)
+        host, _ = _train_main(argv + ["--device", "cpu"])
+        got, want = np.array(tr.loss_log), np.array(host["trainer"].loss_log)
+        if got.shape != want.shape or not np.isfinite(got).all():
+            raise AssertionError(f"[15d] {arch}: losses {got} / {want}")
+        gap = float(np.max(np.abs(got - want) / np.abs(want)))
+        sel_c = [r.selected for r in card["server"].history]
+        if gap > LM_LOSS_RTOL or sel_c != [r.selected for r in
+                                           host["server"].history]:
+            raise AssertionError(f"[15d] {arch}: card losses {got} against "
+                                 f"CPU {want} (gap {gap:.3g})")
+        if n_rec:
+            results["rg_lru_scan"]["fl_train_launches"] = \
+                counts["rg_lru_scan"]
+        log(f"[15d] launch.train --arch {arch} (reduced), {rounds} "
+            f"round(s), {steps} SGD steps: card {wall:.2f} s; losses "
+            f"{np.round(got, 3).tolist()}; card against CPU on the same "
+            f"batches: largest relative gap {gap:.3g} (limit "
+            f"{LM_LOSS_RTOL:g}); launches {counts}")
+
+
+def phase_train_time_only() -> None:
+    """(e) ``launch.train --arch none`` on the card and on the CPU: the
+    same lines (all numpy), the wall-clock seconds aside."""
+    import re
+    argv = ["--arch", "none", "--rounds", "50", "--policy",
+            "elementwise_ucb", "--failure-prob", "0.1", "--swap-clients",
+            "7"]
+    reset_counts()
+    _, card = _train_main(argv)
+    check_launches("15e", {})
+    _, host = _train_main(argv + ["--device", "cpu"])
+    wall = re.compile(r"in \d+s wall")
+    if [wall.sub("", x) for x in card] != [wall.sub("", x) for x in host]:
+        raise AssertionError("[15e] time-only lines differ card/CPU")
+    log(f"[15e] launch.train --arch none, 50 rounds (failure prob 0.1, "
+        f"elastic swap every 7): card and CPU print the same {len(card)} "
+        f"lines; last: {card[-2].strip()}")
+
+
+def phase_train(results: dict) -> None:
+    t0 = time.perf_counter()
+    phase_train_grads(results)
+    phase_train_step(results)
+    phase_train_cnn(results)
+    phase_train_lm(results)
+    phase_train_time_only()
+    log(f"[15] phase time {time.perf_counter() - t0:.1f} s")
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: CUDA is not available; this script runs on "
@@ -2410,12 +2794,14 @@ def main() -> None:
     phase_lm(results)
     phase_griffin(results)
     phase_async(results)
+    phase_train(results)
     log(f"[done] {time.perf_counter() - t0:.1f} s")
     log(card_name_and_power())          # again, beside the results
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
             "device_ms")
-    extra = ("shapes", "split_device_ms", "async_launches")
+    extra = ("shapes", "split_device_ms", "async_launches", "train_launches",
+             "fl_train_launches")
     print(json.dumps({"kernels": [
         {**{k: r[k] for k in keys}, **{k: r[k] for k in extra if k in r}}
         for r in results.values()]}))

@@ -11,7 +11,10 @@ crash mid-save leaves an ignored temporary directory, never a torn
 checkpoint.  :meth:`CheckpointManager.restore` verifies the checksums and
 falls back to the newest valid checkpoint, warning about the corrupt ones
 it skips.  Retention: the ``keep_last`` newest and every
-``keep_every``-th.
+``keep_every``-th.  :func:`bandit_state_tree` / :func:`restore_bandit_state`
+carry the host-loop server's ``ClientStats`` and :func:`rng_state_tree` /
+:func:`restore_rng` a ``numpy`` generator, so ``launch/train.py`` resumes
+where it stopped.
 
 A tree is flattened as ``jax.tree.flatten`` flattens it: dict keys in
 sorted order, ``None`` an empty node that leaves no leaf, and everything
@@ -270,3 +273,33 @@ class CheckpointManager:
             if self.keep_every and s % self.keep_every == 0:
                 continue
             shutil.rmtree(self._path(s), ignore_errors=True)
+
+
+def bandit_state_tree(stats) -> dict:
+    """``core/host_bandit.ClientStats`` -> a checkpointable tree."""
+    return {
+        "n_sel": stats.n_sel, "sum_ud": stats.sum_ud, "sum_ul": stats.sum_ul,
+        "sum_tinc": stats.sum_tinc, "last_ud": stats.last_ud,
+        "last_ul": stats.last_ul, "hist_ud": stats.hist_ud,
+        "hist_ul": stats.hist_ul, "hist_n": stats.hist_n,
+        "total_sel": np.asarray(stats.total_sel),
+    }
+
+
+def restore_bandit_state(stats, tree: dict) -> None:
+    """The inverse of :func:`bandit_state_tree`, into ``stats`` in place."""
+    for k in ("n_sel", "sum_ud", "sum_ul", "sum_tinc", "last_ud", "last_ul",
+              "hist_ud", "hist_ul", "hist_n"):
+        getattr(stats, k)[...] = tree[k]
+    stats.total_sel = int(tree["total_sel"])
+
+
+def rng_state_tree(rng: np.random.Generator) -> dict:
+    """A ``numpy`` generator's state as a checkpointable tree (one string
+    leaf: its 128-bit integers do not fit an integer array)."""
+    return {"state": json.dumps(rng.bit_generator.state)}
+
+
+def restore_rng(rng: np.random.Generator, tree: dict) -> None:
+    """The inverse of :func:`rng_state_tree`, into ``rng`` in place."""
+    rng.bit_generator.state = json.loads(str(tree["state"]))

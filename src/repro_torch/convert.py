@@ -10,7 +10,8 @@ griffin's as ``{"embed", "groups", "final_norm", "tail_rec{t}",
 "tail_mlp{t}"}``.  These functions move such dicts —
 of numpy arrays or anything ``np.asarray`` takes — to the port's tensors
 (and the CNN's back), so both packages can start from the same mid-run
-state and the same model.
+state and the same model; ``opt_state_from_tree`` carries an optimizer's
+state (``optim/sgd.py``) across the same way.
 """
 
 from __future__ import annotations
@@ -106,3 +107,15 @@ def lm_params_from_tree(tree: dict, device=None) -> dict:
     return {k: (lm_params_from_tree(v, device) if isinstance(v, dict)
                 else _lm_leaf(v, device))
             for k, v in tree.items()}
+
+
+def opt_state_from_tree(tree: dict, device=None) -> dict:
+    """The port's optimizer state (``optim/sgd.py``) from the JAX package's:
+    ``{"step": int32 scalar, "m": tree, "v": tree}`` of ``adamw`` or
+    ``{"step"[, "mu": tree]}`` of ``sgd``, as numpy arrays or anything
+    ``np.asarray`` takes.  The trees keep their structure, dtypes and
+    layout (the LMs' parameter layout, :func:`lm_params_from_tree`), so a
+    port optimizer steps on from a JAX run's mid-run state."""
+    if "step" not in tree:
+        raise ValueError("an optimizer state holds a 'step'")
+    return lm_params_from_tree(tree, device)

@@ -7,6 +7,10 @@ has a smooth random prototype (a few low-frequency Fourier modes) and a
 sample is the prototype plus per-sample noise and a brightness/contrast
 jitter.  The same seed gives byte-identical arrays in both packages
 (tests/test_torch_fl_data.py), so the two train on the same images.
+
+``make_token_stream`` is the LM trainers' synthetic token stream (a sparse
+bigram chain), bitwise the JAX package's on the same seed
+(tests/test_torch_host_fl.py).
 """
 
 from __future__ import annotations
@@ -59,3 +63,21 @@ def make_synthetic_cifar(n_train: int = 50_000, n_test: int = 10_000,
         return ImageDataset(x=x, y=y)
 
     return sample(n_train), sample(n_test)
+
+
+def make_token_stream(n_tokens: int, vocab: int, seed: int = 0,
+                      order: int = 2) -> np.ndarray:
+    """Markov-ish synthetic token stream (learnable bigram structure)."""
+    rng = np.random.default_rng(seed)
+    # sparse bigram transition: each token prefers a few successors
+    n_succ = 8
+    succ = rng.integers(0, vocab, size=(min(vocab, 4096), n_succ))
+    toks = np.empty(n_tokens, np.int32)
+    toks[0] = rng.integers(0, vocab)
+    for i in range(1, n_tokens):
+        prev = toks[i - 1] % succ.shape[0]
+        if rng.uniform() < 0.8:
+            toks[i] = succ[prev, rng.integers(0, n_succ)]
+        else:
+            toks[i] = rng.integers(0, vocab)
+    return toks

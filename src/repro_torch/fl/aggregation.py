@@ -6,7 +6,8 @@ global' = sum_k (D_k / sum D) * params_k over the surviving clients.  With
 ``use_kernel`` the combine runs over the flattened parameter vectors through
 ``kernels/ops.fedavg_combine`` (the CUDA kernel for tensors on the card);
 otherwise it is the left-to-right ``tree_weighted_sum``.  Both compute the
-same sum in the same order.
+same sum in the same order.  Parameters are a dict of tensors, flat (the
+CNN) or nested (the LMs).
 """
 
 from __future__ import annotations
@@ -14,8 +15,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from repro_torch.utils.trees import (FlatSpec, flatten, tree_weighted_sum,
-                                     unflatten)
+from repro_torch.utils.trees import (tree_leaves, tree_map, tree_sub,
+                                     tree_unflatten, tree_weighted_sum)
 
 # Reject any client update whose flattened L2 norm exceeds this (a diverged
 # or corrupted local run), besides any update holding a non-finite value.
@@ -26,9 +27,14 @@ def update_ok(params: dict, max_norm: float = GUARD_MAX_NORM) -> bool:
     """True iff a client update is safe to aggregate: every leaf finite and
     the flattened L2 norm at most ``max_norm``.  The host-side twin of the
     row guard in fl/engine.py."""
-    flat = torch.cat([p.reshape(-1).float() for p in params.values()])
+    flat = _flat(params)
     return (bool(torch.isfinite(flat).all())
             and bool(torch.sqrt(torch.sum(torch.square(flat))) <= max_norm))
+
+
+def _flat(params: dict) -> torch.Tensor:
+    """One float32 vector of a parameter dict's leaves, in key order."""
+    return torch.cat([p.reshape(-1).float() for p in tree_leaves(params)])
 
 
 def fedavg(client_params: list[dict], weights, use_kernel: bool | None = None,
@@ -55,16 +61,20 @@ def fedavg(client_params: list[dict], weights, use_kernel: bool | None = None,
     # float32 normalisation, as the engine's combine does it
     w = np.asarray(weights, dtype=np.float32)
     w = w / w.sum()
-    first = next(iter(client_params[0].values()))
+    like = tree_leaves(client_params[0])
     if use_kernel is None:
-        use_kernel = first.is_cuda
+        use_kernel = like[0].is_cuda
     if not use_kernel:
         return tree_weighted_sum(client_params, [float(v) for v in w])
     from repro_torch.kernels.ops import fedavg_combine
-    spec = FlatSpec.of_tree(client_params[0])
-    stacked = torch.stack([flatten(p, spec) for p in client_params])
-    avg = fedavg_combine(stacked, torch.as_tensor(w, device=first.device))
-    return unflatten(avg, spec)
+    stacked = torch.stack([_flat(p) for p in client_params])
+    avg = fedavg_combine(stacked, torch.as_tensor(w, device=like[0].device))
+    leaves, off = [], 0
+    for x in like:
+        leaves.append(avg[off:off + x.numel()].view(x.shape).to(
+            x.dtype, copy=True))
+        off += x.numel()
+    return tree_unflatten(client_params[0], leaves)
 
 
 def fedavg_delta(global_params: dict, client_params: list[dict], weights,
@@ -73,7 +83,6 @@ def fedavg_delta(global_params: dict, client_params: list[dict], weights,
     Equal to :func:`fedavg` at lr = 1; a smaller lr damps noisy cohorts."""
     w = np.asarray(weights, dtype=np.float64)
     w = (w / w.sum()).astype(np.float32)
-    deltas = [{n: cp[n] - global_params[n] for n in cp}
-              for cp in client_params]
+    deltas = [tree_sub(cp, global_params) for cp in client_params]
     avg = tree_weighted_sum(deltas, [float(v) for v in w])
-    return {n: g + server_lr * avg[n] for n, g in global_params.items()}
+    return tree_map(lambda g, d: g + server_lr * d, global_params, avg)

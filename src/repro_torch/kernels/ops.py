@@ -9,9 +9,24 @@ kernels/flash_attention.py, kernels/rg_lru.py); a CPU tensor goes to the
 plain version (kernels/ref.py).  The bandit round's
 kernel updates the state in place and its plain version returns a new one:
 callers use the returned state and treat the one passed in as consumed.
+
+Attention and the RG-LRU scan are differentiable.  When grad mode is on and
+an input requires a gradient, each runs through a ``torch.autograd.Function``
+whose forward is the routed call above (the kernel on the card, the plain
+version on the CPU) and whose backward needs no kernel of its own:
+
+- :class:`FlashAttentionFn` recomputes the attention through its plain
+  blockwise version (``kernels/ref.flash_attention_ref``, which is
+  ``models/layers.flash_attention``) and differentiates that, as the JAX
+  package's ``flash_attention_trainable`` does with its jnp blockwise path;
+- :class:`RgLruScanFn` runs the adjoint recurrence g_t = dy_t + a_{t+1} *
+  g_{t+1} as the scan itself on time-reversed inputs (the kernel on the
+  card), then db = g and da_t = g_t * y_{t-1} with y_{-1} = 0.
 """
 
 from __future__ import annotations
+
+import torch
 
 from repro_torch.kernels import bandit_round as _cuda
 from repro_torch.kernels import fedavg as _fedavg
@@ -74,15 +89,78 @@ def fedavg_combine(stacked, weights):
     return fn(stacked, weights)
 
 
-def flash_attention(q, k, v, causal: bool = True):
-    """Causal (or full) GQA attention: ``q`` [B, Sq, KV, G, dh], ``k``/``v``
-    [B, Skv, KV, dh] -> [B, Sq, KV, G, dh] in q's dtype."""
+def _needs_grad(*xs) -> bool:
+    return torch.is_grad_enabled() and any(x.requires_grad for x in xs)
+
+
+def _flash_forward(q, k, v, causal: bool):
     fn = _flash.flash_attention_cuda if q.is_cuda else _ref.flash_attention_ref
     return fn(q, k, v, causal)
 
 
-def rg_lru_scan(a, b):
-    """The RG-LRU recurrence y_t = a_t * y_{t-1} + b_t (y_{-1} = 0) over
-    ``a``, ``b`` [B, T, W] -> y [B, T, W] in a's dtype, float32 carry."""
+def _rg_forward(a, b):
     fn = _rg.rg_lru_scan_cuda if a.is_cuda else _ref.rg_lru_ref
     return fn(a, b)
+
+
+class FlashAttentionFn(torch.autograd.Function):
+    """Attention forward through the kernel; backward by recomputing the
+    plain blockwise attention under autograd (FlashAttention's dataflow:
+    no score matrix is kept between the passes)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal: bool):
+        ctx.causal = causal
+        ctx.save_for_backward(q, k, v)
+        return _flash_forward(q, k, v, causal)
+
+    @staticmethod
+    def backward(ctx, g):
+        q, k, v = ctx.saved_tensors
+        with torch.enable_grad():
+            q_, k_, v_ = (x.detach().requires_grad_() for x in (q, k, v))
+            out = _ref.flash_attention_ref(q_, k_, v_, ctx.causal)
+            dq, dk, dv = torch.autograd.grad(out, (q_, k_, v_), g)
+        return dq, dk, dv, None
+
+
+class RgLruScanFn(torch.autograd.Function):
+    """The scan forward; backward as the scan on time-reversed inputs."""
+
+    @staticmethod
+    def forward(ctx, a, b):
+        y = _rg_forward(a, b)
+        ctx.save_for_backward(a, y)
+        return y
+
+    @staticmethod
+    def backward(ctx, dy):
+        a, y = ctx.saved_tensors
+        # g_t = dy_t + a_{t+1} g_{t+1}: reversed in time this is the
+        # forward recurrence with a shifted one step (a_T = 0)
+        a_next = torch.cat([a[:, 1:], torch.zeros_like(a[:, :1])], dim=1)
+        g = _rg_forward(a_next.flip(1).contiguous(),
+                        dy.to(a.dtype).flip(1).contiguous()).flip(1)
+        da = None
+        if ctx.needs_input_grad[0]:
+            y_prev = torch.cat([torch.zeros_like(y[:, :1]), y[:, :-1]], 1)
+            da = (g.float() * y_prev.float()).to(a.dtype)
+        return da, g
+
+
+def flash_attention(q, k, v, causal: bool = True):
+    """Causal (or full) GQA attention: ``q`` [B, Sq, KV, G, dh], ``k``/``v``
+    [B, Skv, KV, dh] -> [B, Sq, KV, G, dh] in q's dtype; through
+    :class:`FlashAttentionFn` when a gradient is wanted."""
+    if _needs_grad(q, k, v):
+        return FlashAttentionFn.apply(q, k, v, causal)
+    return _flash_forward(q, k, v, causal)
+
+
+def rg_lru_scan(a, b):
+    """The RG-LRU recurrence y_t = a_t * y_{t-1} + b_t (y_{-1} = 0) over
+    ``a``, ``b`` [B, T, W] -> y [B, T, W] in a's dtype, float32 carry;
+    through :class:`RgLruScanFn` when a gradient is wanted."""
+    if _needs_grad(a, b):
+        return RgLruScanFn.apply(a, b)
+    return _rg_forward(a, b)

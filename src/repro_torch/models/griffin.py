@@ -10,14 +10,18 @@ Parameters keep the JAX package's tree: ``embed.tok`` (tied unembedding),
 ``groups`` with every leaf stacked on a leading [G] axis (``rec0``,
 ``mlp0``, ``rec1``, ``mlp1``, ``attn``, ``mlp2``), ``tail_rec{t}`` /
 ``tail_mlp{t}`` and ``final_norm``.  ``_stack_forward`` is a Python loop
-over the G groups and then the tail, where the JAX package scans.
+over the G groups and then the tail, where the JAX package scans; with
+``cfg.remat`` and grad mode on, a full-sequence forward runs each group
+under ``torch.utils.checkpoint`` (non-reentrant), as the JAX package
+wraps its group body in ``jax.checkpoint``.
 
 Routes.  The RG-LRU scan of a full sequence builds (a, b) in float32 and
 sends the recurrence h_t = a_t * h_{t-1} + b_t to
 ``kernels/ops.rg_lru_scan``: the CUDA kernel on the card, its plain
-sequential loop on the CPU.  The JAX package computes the same recurrence
-with ``lax.associative_scan``, a tree, so float32 results differ by
-rounding.  Local attention (window ``sliding_window``; d_head 256 at full
+sequential loop on the CPU; under autograd its backward is the same scan
+on time-reversed inputs (``ops.RgLruScanFn``).  The JAX package computes
+the same recurrence with ``lax.associative_scan``, a tree, so float32
+results differ by rounding.  Local attention (window ``sliding_window``; d_head 256 at full
 width) runs the plain blockwise ``layers.flash_attention`` with its window
 mask at S >= 1024 and einsum + softmax below: that is the JAX package's own
 split, whose griffin calls its jnp ``layers.flash_attention`` and never the
@@ -35,6 +39,7 @@ from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.kernels import ops
 from repro_torch.kernels.ref import NEG_LOGIT
@@ -42,7 +47,7 @@ from repro_torch.models.layers import (LMConfig, _flash_ok, apply_rope,
                                        dense_init, embed_apply, embed_init,
                                        flash_attention, rms_norm,
                                        softmax_xent)
-from repro_torch.models.transformer import _layer
+from repro_torch.models.transformer import _unstack, remat_on
 
 GROUP = ("rec", "rec", "attn")
 C_SCALE = 8.0          # the paper's c constant
@@ -307,6 +312,21 @@ def init_states(cfg: LMConfig, batch: int, device=None) -> dict:
     return st
 
 
+def _group_apply(gp: dict, x: torch.Tensor, st0, st1, cache, positions,
+                 cfg: LMConfig, cache_pos=None, decode: bool = False):
+    """One (rec, mlp, rec, mlp, attn, mlp) group: (x, new rec0 state, new
+    rec1 state)."""
+    x, ns0 = recurrent_block_apply(gp["rec0"], x, cfg, state=st0,
+                                   decode=decode)
+    x = mlp_block_apply(gp["mlp0"], x, cfg)
+    x, ns1 = recurrent_block_apply(gp["rec1"], x, cfg, state=st1,
+                                   decode=decode)
+    x = mlp_block_apply(gp["mlp1"], x, cfg)
+    x, _ = attn_block_apply(gp["attn"], x, cfg, positions, cache=cache,
+                            cache_pos=cache_pos, decode=decode)
+    return mlp_block_apply(gp["mlp2"], x, cfg), ns0, ns1
+
+
 def _stack_forward(params: dict, x: torch.Tensor, cfg: LMConfig,
                    states: dict, positions, cache_pos=None,
                    decode: bool = False, want_cache: bool = False):
@@ -315,21 +335,18 @@ def _stack_forward(params: dict, x: torch.Tensor, cfg: LMConfig,
     G, tail = _layout(cfg)
     rec_new = {name: tuple(torch.empty_like(t) for t in states[name])
                for name in ("rec0", "rec1")}
-    for g in range(G):
-        gp = _layer(params["groups"], g)
-        x, ns0 = recurrent_block_apply(
-            gp["rec0"], x, cfg, state=tuple(t[g] for t in states["rec0"]),
-            decode=decode)
-        x = mlp_block_apply(gp["mlp0"], x, cfg)
-        x, ns1 = recurrent_block_apply(
-            gp["rec1"], x, cfg, state=tuple(t[g] for t in states["rec1"]),
-            decode=decode)
-        x = mlp_block_apply(gp["mlp1"], x, cfg)
+    remat = remat_on(cfg) and not (decode or want_cache)
+    for g, gp in enumerate(_unstack(params["groups"], G)):
         cache = ({n: t[g] for n, t in states["attn"].items()}
                  if decode or want_cache else None)
-        x, _ = attn_block_apply(gp["attn"], x, cfg, positions, cache=cache,
-                                cache_pos=cache_pos, decode=decode)
-        x = mlp_block_apply(gp["mlp2"], x, cfg)
+        args = (gp, x, tuple(t[g] for t in states["rec0"]),
+                tuple(t[g] for t in states["rec1"]), cache, positions, cfg,
+                cache_pos, decode)
+        if remat:
+            x, ns0, ns1 = checkpoint(_group_apply, *args,
+                                     use_reentrant=False)
+        else:
+            x, ns0, ns1 = _group_apply(*args)
         for name, ns in (("rec0", ns0), ("rec1", ns1)):
             for dst, src in zip(rec_new[name], ns):
                 dst[g] = src
@@ -359,7 +376,7 @@ def forward(params: dict, batch: dict, cfg: LMConfig):
 
 
 def loss_fn(params: dict, batch: dict, cfg: LMConfig) -> torch.Tensor:
-    """Next-token cross-entropy of :func:`forward` (no backward ported)."""
+    """Next-token cross-entropy of :func:`forward`."""
     logits, _ = forward(params, batch, cfg)
     return softmax_xent(logits[:, :-1], batch["tokens"][:, 1:])
 

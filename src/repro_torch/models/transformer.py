@@ -6,8 +6,11 @@ per-layer ones stacked on a leading [L] axis (``layers.attn.wq`` is
 [L, d_model, H * dh]); the layer stack is a Python loop over that axis where
 the JAX package scans.  Entry points:
 
-  * ``forward(params, batch, cfg)`` and ``loss_fn`` — the full sequence
-    (a forward only: no gradient step is ported yet);
+  * ``forward(params, batch, cfg)`` and ``loss_fn`` — the full sequence,
+    differentiable (``launch/steps.make_train_step`` trains through it);
+    with ``cfg.remat`` and grad mode on, each layer runs under
+    ``torch.utils.checkpoint`` (non-reentrant), as the JAX package wraps
+    its scanned layer in ``jax.checkpoint``;
   * ``prefill(params, batch, cfg, max_len)`` — builds the KV cache;
   * ``decode_step(params, cache, tokens, pos, cfg)`` — one token.
 
@@ -20,6 +23,7 @@ raise ``NotImplementedError``.
 from __future__ import annotations
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models.layers import (LMConfig, attention_apply, embed_apply,
                                        init_attention, init_embed,
@@ -66,6 +70,24 @@ def _layer(params: dict, i: int) -> dict:
             for k, v in params.items()}
 
 
+def _unstack(params: dict, n: int) -> list[dict]:
+    """The n per-layer dicts of [n]-stacked leaves, by ``torch.unbind``:
+    views whose gradients autograd stacks once, not n full-size sums."""
+    out = [{} for _ in range(n)]
+    for k, v in params.items():
+        parts = (_unstack(v, n) if isinstance(v, dict)
+                 else torch.unbind(v, 0))
+        for d, part in zip(out, parts):
+            d[k] = part
+    return out
+
+
+def remat_on(cfg) -> bool:
+    """Whether a forward recomputes its layers in the backward pass:
+    ``cfg.remat`` with grad mode on (inference never checkpoints)."""
+    return cfg.remat and torch.is_grad_enabled()
+
+
 # ---------------------------------------------------------------------------
 # forward
 # ---------------------------------------------------------------------------
@@ -90,20 +112,28 @@ def _embed_inputs(params: dict, batch: dict, cfg: LMConfig) -> torch.Tensor:
     return embed_apply(params["embed"], batch["tokens"], cfg)
 
 
+def _train_block(pl: dict, x: torch.Tensor, positions, cfg: LMConfig):
+    return _block(pl, x, cfg, positions)[0]
+
+
 def forward(params: dict, batch: dict, cfg: LMConfig):
     """Full-sequence forward: returns (logits [B, S, V], moe_aux = 0)."""
     x = _embed_inputs(params, batch, cfg)
     positions = torch.arange(x.shape[1], device=x.device)
     aux = torch.zeros((), device=x.device)
-    for i in range(cfg.n_layers):
-        x, _, a = _block(_layer(params["layers"], i), x, cfg, positions)
-        aux = aux + a
+    remat = remat_on(cfg)
+    for pl in _unstack(params["layers"], cfg.n_layers):
+        if remat:
+            x = checkpoint(_train_block, pl, x, positions, cfg,
+                           use_reentrant=False)
+        else:
+            x = _train_block(pl, x, positions, cfg)
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
     return unembed_apply(params["embed"], x, cfg), aux
 
 
 def loss_fn(params: dict, batch: dict, cfg: LMConfig) -> torch.Tensor:
-    """Next-token cross-entropy of :func:`forward` (no backward ported)."""
+    """Next-token cross-entropy of :func:`forward`."""
     logits, aux = forward(params, batch, cfg)
     return softmax_xent(logits[:, :-1], batch["tokens"][:, 1:]) + aux
 

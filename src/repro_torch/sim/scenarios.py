@@ -4,10 +4,12 @@
 A Scenario bundles (a) how the static per-client mean resources are drawn
 and (b) the round-wise dynamics layered on top of the paper's truncated-
 normal fluctuation (Eqs. 8-9); ``sim/engine.py`` reads the fields in its
-round loop.  The registry and ``build_env``/``cell_ids`` are byte-identical
-to the JAX package's (tests/test_torch_scenarios.py), so a scenario name
-means the same environment in both packages.  The numpy discrete-event
-sampler (``ScenarioResources``) is not part of the port.
+round loop, and :class:`ScenarioResources` plugs them into the host-loop
+server (fl/server.py) exactly like ``sim/resources.ResourceModel``.  The
+registry, ``build_env``/``cell_ids`` and ``ScenarioResources`` are
+byte-identical to the JAX package's (tests/test_torch_scenarios.py,
+tests/test_torch_host_fl.py), so a scenario name means the same
+environment in both packages.
 
 Registry:
   paper-baseline         — Sect. IV setup exactly (stationary means)
@@ -30,8 +32,11 @@ import math
 
 import numpy as np
 
-from repro_torch.sim.network import (NetworkEnv, place_clients_uniform_disk,
+from repro_torch.sim.network import (CELL_RADIUS_M, MIN_DIST_M, NetworkEnv,
+                                     place_clients_uniform_disk,
                                      throughput_bps)
+from repro_torch.sim.resources import PAPER_MODEL_BITS
+from repro_torch.sim.truncnorm import sample_truncated_normal
 
 CAP_LOW, CAP_HIGH = 10.0, 100.0          # paper: gamma_k ~ U[10, 100]
 DATA_LOW, DATA_HIGH = 100, 1000          # paper: D_k ~ U[100, 1000]
@@ -112,6 +117,66 @@ class Scenario:
             2.0 * math.pi * np.asarray(rnd, dtype=np.float64)
             / self.diurnal_period)
         return np.maximum(m, 0.05)
+
+
+class ScenarioResources:
+    """Round-wise (t_UD, t_UL) sampler implementing a Scenario's dynamics.
+
+    Drop-in for ``ResourceModel`` in ``fl.server.FederatedServer``: the
+    server calls ``advance()`` (dynamics step, internal rng) then
+    ``sample_times(rng)`` (within-round fluctuation, server rng) each round.
+    With all dynamics off this consumes the server rng identically to
+    ``ResourceModel``, so paper-baseline trajectories are unchanged.
+    """
+
+    def __init__(self, scenario: Scenario, env: NetworkEnv,
+                 eta: float | None = None,
+                 model_bits: float = PAPER_MODEL_BITS,
+                 seed: int = 0, fluctuate: bool = True):
+        self.scenario = scenario
+        self.env = env
+        self.eta = scenario.eta if eta is None else eta
+        self.model_bits = model_bits
+        self.fluctuate = fluctuate
+        self.mean_theta = env.mean_throughput_bps.copy()
+        self.mean_gamma = env.mean_capability.copy()
+        self.cell_id = scenario.cell_ids(env.n_clients)
+        self._rng = np.random.default_rng(seed + 9173)
+        self._round = 0
+        self._cell_factor = np.ones(max(scenario.congestion_cells, 1))
+
+    def advance(self) -> None:
+        """The dynamics between rounds, from the internal rng."""
+        s = self.scenario
+        self._round += 1
+        if s.congestion_cells > 0 and s.congestion_sigma > 0.0:
+            self._cell_factor = np.exp(self._rng.normal(
+                0.0, s.congestion_sigma, size=s.congestion_cells))
+        if s.churn_prob > 0.0 and self._rng.uniform() < s.churn_prob:
+            j = int(self._rng.integers(self.env.n_clients))
+            r = max(CELL_RADIUS_M * math.sqrt(self._rng.uniform()), MIN_DIST_M)
+            self.mean_theta[j] = float(throughput_bps(np.asarray(r)))
+            self.mean_gamma[j] = self._rng.uniform(CAP_LOW, CAP_HIGH)
+
+    def _effective_theta(self) -> np.ndarray:
+        s = self.scenario
+        theta = self.mean_theta * float(s.diurnal_multiplier(self._round))
+        if s.congestion_cells > 0:
+            theta = theta * self._cell_factor[self.cell_id]
+        return theta
+
+    def sample_times(self, rng: np.random.Generator
+                     ) -> tuple[np.ndarray, np.ndarray]:
+        """The within-round fluctuation (Eqs. 8-11) from the server rng."""
+        theta_mu = self._effective_theta()
+        if self.fluctuate:
+            theta = sample_truncated_normal(theta_mu, self.eta, rng)
+            gamma = sample_truncated_normal(self.mean_gamma, self.eta, rng)
+        else:
+            theta, gamma = theta_mu, self.mean_gamma
+        t_ud = self.env.n_samples / np.maximum(gamma, 1e-9)
+        t_ul = self.model_bits / np.maximum(theta, 1e-9)
+        return t_ud, t_ul
 
 
 SCENARIOS: dict[str, Scenario] = {s.name: s for s in [

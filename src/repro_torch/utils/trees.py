@@ -1,8 +1,12 @@
-"""Parameter-dict helpers — the port of ``repro.utils.trees``
-(``tree_weighted_sum``, ``tree_bytes``, ``tree_param_count``) plus the
-flat layout the FL engine trains in.
+"""Parameter-dict helpers — the port of ``repro.utils.trees`` (``tree_add``,
+``tree_sub``, ``tree_scale``, ``tree_zeros_like``, ``tree_axpy``,
+``tree_dot``, ``global_norm``, ``tree_weighted_sum``, ``tree_bytes``,
+``tree_param_count``, ``tree_cast``) plus ``tree_map``/``tree_leaves`` and
+the flat layout the FL engine trains in.
 
-A model's parameters are a ``dict`` of tensors.  :class:`FlatSpec` fixes an
+A model's parameters are a ``dict`` of tensors, nested for the LMs (every
+dict a node, everything else a leaf, keys in insertion order); the
+``tree_*`` helpers take any nesting.  :class:`FlatSpec` fixes an
 order and an offset for every leaf, so many models can live as the rows of
 one [..., N] float32 buffer: :func:`views` hands out per-leaf views of the
 rows (training writes through them), and the FedAvg combine reads the
@@ -17,23 +21,82 @@ import math
 import torch
 
 
+def tree_map(fn, tree, *rest):
+    """``fn`` over the leaves of ``tree`` and the matching leaves of
+    ``rest`` (trees of the same structure)."""
+    if isinstance(tree, dict):
+        return {k: tree_map(fn, v, *(r[k] for r in rest))
+                for k, v in tree.items()}
+    return fn(tree, *rest)
+
+
+def tree_leaves(tree) -> list:
+    """The leaves of ``tree`` in its key order."""
+    if isinstance(tree, dict):
+        return [x for v in tree.values() for x in tree_leaves(v)]
+    return [tree]
+
+
+def tree_unflatten(like, leaves: list):
+    """A tree of ``like``'s structure holding ``leaves`` in its key
+    order."""
+    it = iter(leaves)
+    return tree_map(lambda _: next(it), like)
+
+
+def tree_add(a, b):
+    return tree_map(torch.add, a, b)
+
+
+def tree_sub(a, b):
+    return tree_map(torch.sub, a, b)
+
+
+def tree_scale(a, s):
+    return tree_map(lambda x: x * s, a)
+
+
+def tree_zeros_like(a):
+    return tree_map(torch.zeros_like, a)
+
+
+def tree_axpy(alpha, x, y):
+    """alpha * x + y"""
+    return tree_map(lambda xi, yi: alpha * xi + yi, x, y)
+
+
+def tree_dot(a, b):
+    return sum(torch.vdot(x.reshape(-1), y.reshape(-1))
+               for x, y in zip(tree_leaves(a), tree_leaves(b)))
+
+
+def global_norm(a):
+    return torch.sqrt(sum(torch.sum(torch.square(x))
+                          for x in tree_leaves(a)))
+
+
 def tree_weighted_sum(trees: list[dict], weights) -> dict:
     """sum_i w_i * tree_i, left to right: ``acc = x0*w0``, then
     ``acc = acc + xi*wi`` (the FedAvg primitive)."""
-    def comb(name):
-        acc = trees[0][name] * weights[0]
-        for i in range(1, len(trees)):
-            acc = acc + trees[i][name] * weights[i]
+    def comb(*leaves):
+        acc = leaves[0] * weights[0]
+        for i in range(1, len(leaves)):
+            acc = acc + leaves[i] * weights[i]
         return acc
-    return {name: comb(name) for name in trees[0]}
+    return tree_map(comb, *trees)
 
 
 def tree_bytes(tree: dict) -> int:
-    return sum(x.numel() * x.element_size() for x in tree.values())
+    return sum(x.numel() * x.element_size() for x in tree_leaves(tree))
 
 
 def tree_param_count(tree: dict) -> int:
-    return sum(x.numel() for x in tree.values())
+    return sum(x.numel() for x in tree_leaves(tree))
+
+
+def tree_cast(a, dtype):
+    """Floating leaves cast to ``dtype``; the rest as they are."""
+    return tree_map(lambda x: x.to(dtype) if x.is_floating_point() else x, a)
 
 
 @dataclasses.dataclass(frozen=True)
