@@ -149,6 +149,24 @@ else.  Phases (every mismatch raises, so any failure exits non-zero):
      recurrentgemma-9b (1 round) on the card and the CPU: every loss within
      LM_LOSS_RTOL on the same batches; (e) ``launch.train --arch none`` on
      the card and the CPU: the same lines.
+ 16. the moe, vlm, xlstm and encdec families: (a) the bf16 attention
+     kernel at their full-width prefill shapes, (B, S, KV, G, dh) = (4,
+     4096, 8, 4, 128) and (4, 4096, 8, 7, 128) causal (phi3.5-moe,
+     llava-next-34b), (4, 4096, 16, 1, 64) full and causal and the
+     cross-attention's (4, 1100 queries, 4096 frames) (seamless-m4t-medium),
+     the f32 kernel at G = 7 and the cross shape, against the plain version
+     under phase 12's gates and timed; (b) the five reduced configs
+     (phi3.5-moe, kimi-k2, llava, xlstm, seamless) at S = 1024 on the card
+     against the CPU in f32 and bf16 (FAMILY_TOL; moe on the CPU's expert
+     choices, the card's own differing only at near ties), attention
+     launches a prefill exactly n_layers (moe, vlm), n_enc + 2 n_dec
+     (encdec) and 0 (xlstm); (c) ``launch/serve.py`` at full width, batch
+     4, prompt 4096, 16 greedy steps: phi3.5-moe and llava-next-34b on 8
+     layers (their float32 weights outgrow the card whole),
+     seamless-m4t-medium and xlstm-1.3b whole; exactly 8, 8, 36 and 0
+     attention launches a prefill, finite logits, the parameter count,
+     prefill ms, decode tok/s, peak memory, profiles of one prefill and one
+     decode step (xlstm: one mLSTM and one sLSTM block timed).
 
 Launch counts are zeroed before each sweep and read after it; each sweep
 must launch its kernels once per (policy, round) (the local top-S once per
@@ -1645,11 +1663,8 @@ def tile_check(lib, dh: int, seed: int = 0):
 
 
 def phase_flash_kernel(results: dict) -> None:
-    import torch.nn.functional as F
-
     from repro_torch.kernels import _build
     from repro_torch.kernels import flash_attention as cuda_flash
-    from repro_torch.kernels import ref
     # first, the float32 kernel's 3xTF32 products on one tile against
     # float64: its fragment layouts and the tensor cores' float32 sums
     lib = _build.load("flash_attention")
@@ -1663,61 +1678,75 @@ def phase_flash_kernel(results: dict) -> None:
                                  f"above {TILE_CHECK_MAX_REL:g}")
     gen = torch.Generator(device="cuda")
     gen.manual_seed(12)
-    for b, sq, skv, kv, g, dh, causal, dtype in FLASH_CASES:
-        name, kernel = FLASH_VARIANT[dtype]
-        dt = getattr(torch, dtype)
-        q, k, v = (torch.randn(shape, generator=gen, device="cuda").to(dt)
-                   for shape in ((b, sq, kv, g, dh), (b, skv, kv, dh),
-                                 (b, skv, kv, dh)))
-        before = cuda_flash.launch_counts[name]
-        got = cuda_flash.flash_attention_cuda(q, k, v, causal)
-        if cuda_flash.launch_counts[name] != before + 1:
-            raise AssertionError(f"[12] {dtype} input did not launch {name}")
-        want = ref.flash_attention_ref(q, k, v, causal)
-        torch.cuda.synchronize()
-        err = (got.float() - want.float()).abs().max().item()
-        where = (f"{name} (B, Sq, Skv, KV, G, dh)=({b}, {sq}, {skv}, {kv}, "
-                 f"{g}, {dh}) {'causal' if causal else 'full'} {dtype}")
-        torch.testing.assert_close(got, want, **FLASH_TOL[dtype],
-                                   msg=f"[12] {where}: kernel differs from "
-                                       f"the plain version")
-        res = results[name]
-        res["max_abs_err"] = max(res.get("max_abs_err") or 0.0, err)
-        n = 1 if b * sq * skv > 2 ** 28 else 5          # calls per timing
-        def launch():
-            return cuda_flash.flash_attention_cuda(q, k, v, causal)
-        ms = time_ms(launch, n)
-        dev_ms = profiled_kernel_ms(launch, max(n, 3), kernel)
-        pms = time_ms(lambda: ref.flash_attention_ref(q, k, v, causal), 1)
-        # SDPA's layout: [B, heads, S, dh], query head i on kv head i // G
-        qs = q.permute(0, 2, 3, 1, 4).reshape(b, kv * g, sq, dh).contiguous()
-        ks, vs = (x.permute(0, 2, 1, 3).contiguous() for x in (k, v))
-        lms = time_ms(lambda: F.scaled_dot_product_attention(
-            qs, ks, vs, is_causal=causal, enable_gqa=True), n)
-        bms, by = flash_bound(b, sq, skv, kv, g, dh, causal,
-                              q.element_size())
-        bounds = f"bound {bms:.4f} ms ({by}), {100 * bms / ms:.2f}% of bound"
+    for case in FLASH_CASES:
+        flash_case(results, case, gen, "12")
+
+
+def flash_case(results: dict, case: tuple, gen, tag: str) -> None:
+    """One attention case (B, Sq, Skv, KV, G, dh, causal, dtype): the
+    kernel against its plain version under FLASH_TOL, timed beside the
+    plain version, SDPA and the bound; the main path's shape (smollm's
+    (4, 4096, 3, 3, 64) causal) keeps its times in ``results``."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import flash_attention as cuda_flash
+    from repro_torch.kernels import ref
+    b, sq, skv, kv, g, dh, causal, dtype = case
+    name, kernel = FLASH_VARIANT[dtype]
+    dt = getattr(torch, dtype)
+    q, k, v = (torch.randn(shape, generator=gen, device="cuda").to(dt)
+               for shape in ((b, sq, kv, g, dh), (b, skv, kv, dh),
+                             (b, skv, kv, dh)))
+    before = cuda_flash.launch_counts[name]
+    got = cuda_flash.flash_attention_cuda(q, k, v, causal)
+    if cuda_flash.launch_counts[name] != before + 1:
+        raise AssertionError(f"[{tag}] {dtype} input did not launch {name}")
+    want = ref.flash_attention_ref(q, k, v, causal)
+    torch.cuda.synchronize()
+    err = (got.float() - want.float()).abs().max().item()
+    where = (f"{name} (B, Sq, Skv, KV, G, dh)=({b}, {sq}, {skv}, {kv}, "
+             f"{g}, {dh}) {'causal' if causal else 'full'} {dtype}")
+    torch.testing.assert_close(got, want, **FLASH_TOL[dtype],
+                               msg=f"[{tag}] {where}: kernel differs from "
+                                   f"the plain version")
+    res = results[name]
+    res["max_abs_err"] = max(res.get("max_abs_err") or 0.0, err)
+    n = 1 if b * sq * skv > 2 ** 28 else 5          # calls per timing
+
+    def launch():
+        return cuda_flash.flash_attention_cuda(q, k, v, causal)
+    ms = time_ms(launch, n)
+    dev_ms = profiled_kernel_ms(launch, max(n, 3), kernel)
+    pms = time_ms(lambda: ref.flash_attention_ref(q, k, v, causal), 1)
+    # SDPA's layout: [B, heads, S, dh], query head i on kv head i // G
+    qs = q.permute(0, 2, 3, 1, 4).reshape(b, kv * g, sq, dh).contiguous()
+    ks, vs = (x.permute(0, 2, 1, 3).contiguous() for x in (k, v))
+    lms = time_ms(lambda: F.scaled_dot_product_attention(
+        qs, ks, vs, is_causal=causal, enable_gqa=True), n)
+    bms, by = flash_bound(b, sq, skv, kv, g, dh, causal, q.element_size())
+    bounds = f"bound {bms:.4f} ms ({by}), {100 * bms / ms:.2f}% of bound"
+    split_ms = None
+    if dtype == "float32":
+        # beside the bound, the same operations at the CUDA cores' float32
+        # rate (the ceiling of a CUDA-core design) and the split pass's own
+        # device time
+        cc_ms = flash_ops(b, sq, skv, kv, g, dh, causal) \
+            / FP32_OPS_PER_S * 1e3
+        split_ms = profiled_kernel_ms(launch, max(n, 3), F32_SPLIT_KERNEL)
+        split = "none" if split_ms is None else f"{split_ms:.4f}"
+        bounds += (f"; the operations at the CUDA cores' float32 rate "
+                   f"{cc_ms:.4f} ms; split pass {split} ms device time")
+    log(f"[{tag}] {where}: max abs err {err:.3g} (rtol/atol "
+        f"{FLASH_TOL[dtype]['rtol']}/{FLASH_TOL[dtype]['atol']}); kernel "
+        f"{ms:.4f} ms (device time by torch.profiler "
+        f"{'none' if dev_ms is None else f'{dev_ms:.4f}'} ms), plain "
+        f"{pms:.4f} ms, SDPA {lms:.4f} ms, {bounds}")
+    if (b, sq, kv, g, dh, causal) == (4, 4096, 3, 3, 64, True):
+        res.update(ms=ms, device_ms=dev_ms, plain_ms=pms, library_ms=lms,
+                   bound_ms=bms, bound_by=by,
+                   shape=dict(b=b, s=sq, kv=kv, g=g, dh=dh))
         if dtype == "float32":
-            # beside the bound, the same operations at the CUDA cores'
-            # float32 rate (the ceiling of a CUDA-core design) and the split
-            # pass's own device time
-            cc_ms = flash_ops(b, sq, skv, kv, g, dh, causal) \
-                / FP32_OPS_PER_S * 1e3
-            split_ms = profiled_kernel_ms(launch, max(n, 3), F32_SPLIT_KERNEL)
-            split = "none" if split_ms is None else f"{split_ms:.4f}"
-            bounds += (f"; the operations at the CUDA cores' float32 rate "
-                       f"{cc_ms:.4f} ms; split pass {split} ms device time")
-        log(f"[12] {where}: max abs err {err:.3g} (rtol/atol "
-            f"{FLASH_TOL[dtype]['rtol']}/{FLASH_TOL[dtype]['atol']}); kernel "
-            f"{ms:.4f} ms (device time by torch.profiler "
-            f"{'none' if dev_ms is None else f'{dev_ms:.4f}'} ms), plain "
-            f"{pms:.4f} ms, SDPA {lms:.4f} ms, {bounds}")
-        if (b, sq, kv, g, dh, causal) == (4, 4096, 3, 3, 64, True):
-            res.update(ms=ms, device_ms=dev_ms, plain_ms=pms, library_ms=lms,
-                       bound_ms=bms, bound_by=by,
-                       shape=dict(b=b, s=sq, kv=kv, g=g, dh=dh))
-            if dtype == "float32":
-                res.update(split_device_ms=split_ms)
+            res.update(split_device_ms=split_ms)
 
 
 def _to(tree, device):
@@ -2765,6 +2794,356 @@ def phase_train(results: dict) -> None:
     log(f"[15] phase time {time.perf_counter() - t0:.1f} s")
 
 
+# ---------------------------------------------------------------------------
+# phase 16: the moe, vlm, xlstm and encdec families
+# ---------------------------------------------------------------------------
+
+# (a): (B, Sq, Skv, KV, G, dh, causal, dtype) of the new families' full-
+# width prefills at 4 x 4096: phi3.5-moe (G = 4, dh 128), llava-next-34b
+# (G = 7), seamless-m4t-medium's encoder (G = 1, dh 64, full; also its
+# cross-attention's shape at 4096 frames) and decoder (causal), its
+# cross-attention at 1100 queries; then the float32 kernel at G = 7 and at
+# the ragged G = 1 cross shape
+FAMILY_FLASH_CASES = [(4, 4096, 4096, 8, 4, 128, True, "bfloat16"),
+                      (4, 4096, 4096, 8, 7, 128, True, "bfloat16"),
+                      (4, 4096, 4096, 16, 1, 64, False, "bfloat16"),
+                      (4, 4096, 4096, 16, 1, 64, True, "bfloat16"),
+                      (4, 1100, 4096, 16, 1, 64, False, "bfloat16"),
+                      (4, 4096, 4096, 8, 7, 128, True, "float32"),
+                      (4, 1100, 4096, 16, 1, 64, False, "float32")]
+FAMILY_ARCHS = ("phi3.5-moe-42b-a6.6b", "kimi-k2-1t-a32b", "llava-next-34b",
+                "xlstm-1.3b", "seamless-m4t-medium")
+FAMILY_SEQ = 1024                  # (b): S, a vlm's 8 patches included
+FAMILY_STEPS = 4                   # (b): decode steps after the prefill
+# (b) card against CPU, logits, by family and dtype: an elementwise
+# (rtol, atol), or "budget": the card's relative L2 distance from the CPU's
+# float32 logits at most 2 x the CPU's own bfloat16 distance + 0.01.
+# float32: rtol 1e-5 / atol 1e-4 (read on an H100, 700 W: up to 2.5e-5 for
+# moe and vlm, 4.3e-5 for enc-dec; the float32 attention kernel's 3xTF32
+# products sit within 2e-5 of the plain version and cuBLAS sums in other
+# orders, through layers of width 128 whose logits reach ~4; the smaller
+# smollm of phase 12 holds 1e-5); xlstm 1e-4 / 1e-3, the CPU tests' limit
+# against the JAX package (the chunkwise mLSTM divides by max(|n . q|,
+# exp(-m)), amplifying float32 rounding where n . q nearly cancels; read up
+# to 3.4e-4).  bfloat16: 2e-2 / 6e-2 for moe and vlm, 2e-2 / 8e-2 for
+# enc-dec, as their CPU tests (read up to 0.024, 0.017 and 0.042 beyond the
+# rtol part); xlstm by the budget, since its exponential gates amplify one
+# bfloat16 step to ~0.1 (the card's distance read 0.20, the CPU's 0.20).
+# moe routes on rounded activations, so the card's run takes the CPU's
+# expert choices (``check_routes`` holds its own to them)
+FAMILY_TOL = {
+    ("moe", "float32"): (1e-5, 1e-4), ("moe", "bfloat16"): (2e-2, 6e-2),
+    ("vlm", "float32"): (1e-5, 1e-4), ("vlm", "bfloat16"): (2e-2, 6e-2),
+    ("xlstm", "float32"): (1e-4, 1e-3), ("xlstm", "bfloat16"): "budget",
+    ("encdec", "float32"): (1e-5, 1e-4), ("encdec", "bfloat16"): (2e-2, 8e-2)}
+# (b), moe: the router's log-probabilities on the card against the CPU's,
+# both on the CPU's expert choices, by dtype.  Read on an H100 (700 W):
+# float32 up to 2.2e-5, bfloat16 up to 0.026 (the CPU's own bfloat16 run
+# sits up to 0.06 from its float32 one)
+ROUTER_TOL = {"float32": 1e-4, "bfloat16": 0.1}
+# (c): (arch, layers kept or None, attention launches a prefill).  The
+# depth is cut only where one card cannot hold the float32 parameters:
+# phi3.5-moe's 32 layers are 41,872,527,360 parameters (~168 GB) and
+# llava's 60 are 34,396,257,280 (~138 GB); 8 of each keep every width
+FAMILY_SERVE = [("phi3.5-moe-42b-a6.6b", 8, 8), ("llava-next-34b", 8, 8),
+                ("seamless-m4t-medium", None, 36), ("xlstm-1.3b", None, 0)]
+# the JAX package's counts of the full configs (registry.param_counts)
+FAMILY_PARAMS = {"phi3.5-moe-42b-a6.6b": 41_872_527_360,
+                 "llava-next-34b": 34_396_257_280,
+                 "seamless-m4t-medium": 977_758_208,
+                 "xlstm-1.3b": 3_604_207_616}
+FAMILY_SERVE_STEPS = 16
+
+
+def _rel_l2(a: torch.Tensor, b: torch.Tensor) -> float:
+    a, b = a.double().cpu(), b.double().cpu()
+    return float((a - b).norm() / b.norm().clamp_min(1e-30))
+
+
+def family_attention_launches(cfg) -> int:
+    """The attention kernel's launches in one prefill of ``cfg`` at S >=
+    1024: one a layer; enc-dec one an encoder layer and two a decoder
+    layer (self, cross); xlstm none."""
+    return {"moe": cfg.n_layers, "vlm": cfg.n_layers, "xlstm": 0,
+            "encdec": cfg.n_enc_layers + 2 * cfg.n_layers}[cfg.family]
+
+
+class _Routes:
+    """Records each ``layers.moe_route`` call's (probs, expert indices) on
+    the CPU while active; given ``forced``, another run's record, each call
+    returns that run's indices in its place (its own are still recorded)."""
+
+    def __init__(self, forced=None):
+        self.calls, self.forced = [], forced
+
+    def __enter__(self):
+        from repro_torch.models import layers
+        self.route = layers.moe_route
+
+        def route(xt, router, mc):
+            probs, idx = self.route(xt, router, mc)
+            self.calls.append((probs.float().cpu(), idx.cpu()))
+            if self.forced is not None:
+                idx = self.forced[len(self.calls) - 1][1].to(idx.device)
+            return probs, idx
+        layers.moe_route = route
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.models import layers
+        layers.moe_route = self.route
+
+
+def check_routes(card: list, cpu: list, limit: float,
+                 where: str) -> tuple[int, float]:
+    """The card's router against the CPU's over the same calls, both run
+    on the CPU's expert choices: log-probabilities within ``limit``, and
+    every token whose own top-k on the card differs from the CPU's (in set
+    or in order) a near tie — two neighbours among its k + 1 largest
+    log-probabilities on the CPU closer than twice that call's largest
+    log-probability gap, so the gap explains the other pick (a top-k that
+    ranks wrongly fails here).  Returns (tokens
+    whose pick differs, the largest gap)."""
+    if len(card) != len(cpu):
+        raise AssertionError(f"{where}: {len(card)} routings on the card, "
+                             f"{len(cpu)} on the CPU")
+    n, worst = 0, 0.0
+    for (pc, ic), (ph, ih) in zip(card, cpu):
+        lc, lh = (x.clamp_min(1e-38).log() for x in (pc, ph))
+        gap = float((lc - lh).abs().max())
+        worst = max(worst, gap)
+        # a pick differs where two of the CPU's k + 1 largest swap places
+        top = lh.sort(-1, descending=True).values[:, :ih.shape[1] + 1]
+        margin = (top[:, :-1] - top[:, 1:]).amin(-1)[(ic != ih).any(-1)]
+        if bool((margin > 2 * gap).any()):
+            raise AssertionError(f"{where}: the card picks other experts at "
+                                 f"a margin of {float(margin.max()):.3g}, "
+                                 f"its router {gap:.3g} from the CPU's")
+        n += margin.numel()
+    if worst > limit:
+        raise AssertionError(f"{where}: router log-probabilities {worst:.3g} "
+                             f"from the CPU's, above {limit}")
+    return n, worst
+
+
+def _family_run(api, cfg, params, batch, toks):
+    """Prefill logits and FAMILY_STEPS decode logits fed ``toks``, with
+    ``cfg`` in place of the registry's config."""
+    logits, cache, pos = api.prefill(params, batch, cfg=cfg,
+                                     max_len=FAMILY_SEQ + FAMILY_STEPS)
+    out = [logits.float().cpu()]
+    for i, tok in enumerate(toks):
+        logits, cache = api.decode_step(params, cache,
+                                        tok.to(logits.device), pos + i,
+                                        cfg=cfg)
+        out.append(logits.float().cpu())
+    return out
+
+
+def phase_family_card_vs_cpu() -> None:
+    """(b): the reduced configs of the five archs at S = 1024 on the card
+    and on the CPU from the same parameters and inputs, float32 and
+    bfloat16 compute: prefill logits and FAMILY_STEPS decode steps fed the
+    same tokens, within FAMILY_TOL; each card prefill launches its dtype's
+    attention variant ``family_attention_launches`` times and nothing
+    else.  A moe run on the card takes the CPU's expert choices, and its
+    router is held to the CPU's (``check_routes``)."""
+    import dataclasses
+
+    from repro_torch.launch import serve
+    from repro_torch.models.registry import build
+    log(f"[16] float32 matmul flags: {tf32_flags()}")
+    for arch in FAMILY_ARCHS:
+        api = build(arch, reduced=True)
+        gen = torch.Generator()
+        gen.manual_seed(16)
+        cpu_params = api.init(gen)
+        card_params = _to(cpu_params, "cuda")
+        rng = np.random.default_rng(16)
+        batch = serve.make_batch(api, rng, 2, FAMILY_SEQ)
+        toks = [torch.tensor(rng.integers(0, api.cfg.vocab, 2),
+                             dtype=torch.int32) for _ in range(FAMILY_STEPS)]
+        runs = {}
+        for dtype in ("float32", "bfloat16"):
+            cfg = dataclasses.replace(api.cfg,
+                                      compute_dtype=getattr(torch, dtype))
+            n = family_attention_launches(cfg)
+            name = FLASH_VARIANT[dtype][0]
+            with torch.inference_mode():
+                with _Routes() as cpu_routes:
+                    cpu = _family_run(api, cfg, cpu_params, batch, toks)
+                reset_counts()
+                with _Routes(forced=cpu_routes.calls) as card_routes:
+                    card = _family_run(api, cfg, card_params,
+                                       _to(batch, "cuda"), toks)
+                counts = check_launches("16", {name: n})
+            runs[dtype] = card, cpu
+            routing = ""
+            if cfg.moe is not None:
+                flips, noise = check_routes(
+                    card_routes.calls, cpu_routes.calls, ROUTER_TOL[dtype],
+                    f"[16] reduced {arch} {dtype}")
+                routing = (f"; router log-probabilities within {noise:.3g} "
+                           f"of the CPU's (limit {ROUTER_TOL[dtype]}), the "
+                           f"card's own pick differing in {flips} "
+                           f"token-layer routings, each a near tie")
+            tol = FAMILY_TOL[(cfg.family, dtype)]
+            worst = max(float((c - h).abs().max()) for c, h in zip(card, cpu))
+            if tol == "budget":
+                ref = runs["float32"][1]
+                got = max(_rel_l2(c, r) for c, r in zip(card, ref))
+                own = max(_rel_l2(h, r) for h, r in zip(cpu, ref))
+                if got > 2 * own + 0.01:
+                    raise AssertionError(
+                        f"[16] reduced {arch} {dtype}: the card's logits "
+                        f"are {got:.4g} from the float32 reference, the "
+                        f"CPU's {own:.4g}")
+                verdict = (f"relative L2 from the float32 reference {got:.4g}"
+                           f" (CPU {own:.4g}, budget {2 * own + 0.01:.4g})")
+            else:
+                for i, (c, h) in enumerate(zip(card, cpu)):
+                    torch.testing.assert_close(
+                        c, h, rtol=tol[0], atol=tol[1],
+                        msg=lambda m, i=i: f"[16] reduced {arch} {dtype} "
+                                           f"logits {i}: {m}")
+                verdict = f"within rtol/atol {tol[0]}/{tol[1]}"
+            log(f"[16] reduced {arch} ({cfg.family}), S={FAMILY_SEQ}, "
+                f"{dtype}: card against CPU, prefill + {FAMILY_STEPS} decode "
+                f"logits {verdict}, max abs gap {worst:.3g}{routing}; {name} "
+                f"launches {counts[name]} a prefill (expected {n})")
+        del card_params
+
+
+def _profile_family(arch: str, layers) -> None:
+    """torch.profiler breakdowns of one warm full-width prefill and of two
+    decode steps after it, on fresh parameters from the same seed."""
+    from repro_torch.launch import serve
+    from repro_torch.models.registry import build
+    torch.cuda.empty_cache()
+    api = build(arch, reduced=False, n_layers=layers)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(0)
+    params = api.init(gen)
+    batch = serve.make_batch(api, np.random.default_rng(0), 4, 4096, "cuda")
+    with torch.inference_mode():
+        logits, cache, pos = api.prefill(params, batch,
+                                         max_len=4096 + FAMILY_SERVE_STEPS)
+        tok = logits[:, -1].argmax(-1).to(torch.int32)
+    profile_device(f"{arch} full-width prefill (4 x 4096)",
+                   lambda: api.prefill(params, batch), tag="16p",
+                   kernel="flash_attention_wgmma")
+    profile_device(f"{arch} full-width decode step (batch 4)",
+                   lambda: api.decode_step(params, cache, tok, pos), steps=2,
+                   tag="16p", kernel="flash_attention_wgmma")
+    del params, batch, cache
+    torch.cuda.empty_cache()
+
+
+def _time_xlstm_blocks() -> None:
+    """Where xlstm-1.3b's prefill goes: one mLSTM and one sLSTM block at
+    full width (batch 4, 4096 steps), timed warm on the host clock after
+    synchronising the card."""
+    from repro_torch.models import xlstm
+    from repro_torch.models.registry import build
+    cfg = build("xlstm-1.3b").cfg
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(0)
+    mp = xlstm.init_mlstm_block(gen, cfg)
+    sp = xlstm.init_slstm_block(gen, cfg)
+    states = xlstm.init_states(cfg, 4, "cuda")
+    mstate = tuple(t[0, 0] for t in states["mlstm"])
+    sstate = tuple(t[0] for t in states["slstm"])
+    x = torch.randn((4, 4096, cfg.d_model), generator=gen,
+                    device="cuda").to(cfg.compute_dtype)
+    times = {}
+    with torch.inference_mode():
+        for name, fn in (("mLSTM", lambda: xlstm.mlstm_block_apply(
+                              mp, x, cfg, mstate, chunk=cfg.mlstm_chunk)),
+                         ("sLSTM", lambda: xlstm.slstm_block_apply(
+                              sp, x, cfg, sstate))):
+            fn()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            times[name] = (time.perf_counter() - t0) * 1e3
+    groups = cfg.n_layers // 8
+    log(f"[16t] xlstm-1.3b blocks at batch 4, 4096 steps: mLSTM "
+        f"{times['mLSTM']:.1f} ms (x {7 * groups} = "
+        f"{7 * groups * times['mLSTM']:.0f} ms), sLSTM {times['sLSTM']:.1f} "
+        f"ms ({times['sLSTM'] / 4096 * 1e3:.1f} us a step; x {groups} = "
+        f"{groups * times['sLSTM']:.0f} ms)")
+
+
+def phase_family_serve(results: dict) -> None:
+    """(c): ``launch/serve.py``'s main at full width, batch 4, a 4096-token
+    prompt (llava: 2880 patches + 1216 text; seamless: 4096 frames + 4096
+    tokens), 16 greedy steps: attention launches a prefill exactly as
+    FAMILY_SERVE says and nothing else, finite logits, the parameter count
+    (with its full-depth count from shapes alone), prefill ms, decode
+    tok/s, peak memory."""
+    from repro_torch.launch import serve
+    from repro_torch.models.registry import build
+    launches = {}
+    for arch, layers, n_attn in FAMILY_SERVE:
+        full_total, full_active = build(arch).param_counts()
+        if full_total != FAMILY_PARAMS[arch]:
+            raise AssertionError(f"[16] {arch}: {full_total} parameters at "
+                                 f"full depth, not {FAMILY_PARAMS[arch]}")
+        want = build(arch, n_layers=layers).param_counts()[0]
+        argv = ["--arch", arch, "--full", "--batch", "4", "--prompt-len",
+                "4096", "--decode-steps", str(FAMILY_SERVE_STEPS)]
+        if layers is not None:
+            argv += ["--layers", str(layers)]
+        torch.cuda.empty_cache()
+        reset_counts()
+        torch.cuda.reset_peak_memory_stats()
+        out = serve.main(argv)
+        counts = check_launches("16", {"flash_attention_wgmma": n_attn})
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        for name in ("prefill_logits", "logits"):
+            if not bool(torch.isfinite(out[name]).all()):
+                raise AssertionError(f"[16] serve {arch}: {name} not finite")
+        if out["tokens"].shape != (4, FAMILY_SERVE_STEPS + 1):
+            raise AssertionError(f"[16] serve {arch}: tokens "
+                                 f"{out['tokens'].shape}")
+        if out["n_params"] != want:
+            raise AssertionError(f"[16] serve {arch}: {out['n_params']} "
+                                 f"parameters, not {want}")
+        launches[arch] = counts["flash_attention_wgmma"]
+        depth = ("full depth" if layers is None else
+                 f"{layers} of {build(arch).cfg.n_layers} layers (depth cut: "
+                 f"{full_total} float32 parameters, "
+                 f"{full_total * 4 / 1e9:.0f} GB, exceed one card)")
+        log(f"[16] serve {arch} full width, {depth}: {out['n_params']} "
+            f"parameters ({out['n_params'] * 4 / 1e9:.1f} GB float32; full "
+            f"depth {full_total} total, {full_active} active), batch 4, "
+            f"prompt 4096, {FAMILY_SERVE_STEPS} decode steps: prefill "
+            f"{out['prefill_ms']:.1f} ms, decode {out['tok_per_s']:.1f} "
+            f"tok/s ({out['decode_s'] * 1e3:.1f} ms), peak device memory "
+            f"{peak:.2f} GiB; tensor-core attention launches "
+            f"{counts['flash_attention_wgmma']} a prefill (expected "
+            f"{n_attn}), float32 kernel {counts['flash_attention']}; logits "
+            f"finite")
+        del out
+        if arch == "xlstm-1.3b":
+            _time_xlstm_blocks()
+        else:
+            _profile_family(arch, layers)
+    results["flash_attention_wgmma"]["family_launches"] = launches
+
+
+def phase_families(results: dict) -> None:
+    t0 = time.perf_counter()
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(16)
+    for case in FAMILY_FLASH_CASES:
+        flash_case(results, case, gen, "16")
+    phase_family_card_vs_cpu()
+    phase_family_serve(results)
+    log(f"[16] phase time {time.perf_counter() - t0:.1f} s")
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: CUDA is not available; this script runs on "
@@ -2795,13 +3174,14 @@ def main() -> None:
     phase_griffin(results)
     phase_async(results)
     phase_train(results)
+    phase_families(results)
     log(f"[done] {time.perf_counter() - t0:.1f} s")
     log(card_name_and_power())          # again, beside the results
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
             "device_ms")
     extra = ("shapes", "split_device_ms", "async_launches", "train_launches",
-             "fl_train_launches")
+             "fl_train_launches", "family_launches")
     print(json.dumps({"kernels": [
         {**{k: r[k] for k in keys}, **{k: r[k] for k in extra if k in r}}
         for r in results.values()]}))

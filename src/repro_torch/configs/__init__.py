@@ -1,3 +1,2 @@
-"""Port of ``repro.configs``: the dense architectures' and
-recurrentgemma-9b's configs (copies).
+"""Port of ``repro.configs``: every architecture's config (copies).
 """

@@ -4,14 +4,17 @@ The JAX package's ``bandit_jax.state_tree`` flattens a ``BanditState`` to a
 dict of arrays (one run, no grid axis); the engines' ``EnvArrays`` has the
 same four fields as the port's; ``models.cnn.init`` gives the CNN's weights
 as a nested dict ``{"conv{i}": {"w", "b", "bn_scale", "bn_bias"},
-"fc{j}": {"w", "b"}}``; ``models.transformer.init`` gives a dense LM's as
-``{"embed", "layers", "final_norm"}`` and ``models.griffin.init`` a
-griffin's as ``{"embed", "groups", "final_norm", "tail_rec{t}",
-"tail_mlp{t}"}``.  These functions move such dicts —
-of numpy arrays or anything ``np.asarray`` takes — to the port's tensors
-(and the CNN's back), so both packages can start from the same mid-run
-state and the same model; ``opt_state_from_tree`` carries an optimizer's
-state (``optim/sgd.py``) across the same way.
+"fc{j}": {"w", "b"}}``; ``models.transformer.init`` gives a dense, moe or
+vlm LM's as ``{"embed", "layers", "final_norm"[, "patch_proj"]}``,
+``models.griffin.init`` a griffin's as ``{"embed", "groups",
+"final_norm", "tail_rec{t}", "tail_mlp{t}"}``, ``models.xlstm.init``
+``{"embed", "mlstm", "slstm", "final_norm", "unembed"}`` and
+``models.encdec.init`` ``{"enc_layers", "dec_layers", "embed", "unembed",
+"enc_norm", "dec_norm"}``.  These functions move such dicts — of numpy
+arrays or anything ``np.asarray`` takes — to the port's tensors (and the
+CNN's back), so both packages can start from the same mid-run state and
+the same model; ``opt_state_from_tree`` carries an optimizer's state
+(``optim/sgd.py``) across the same way.
 """
 
 from __future__ import annotations
@@ -96,14 +99,24 @@ def lm_params_from_tree(tree: dict, device=None) -> dict:
     numpy arrays or anything ``np.asarray`` takes; any nesting of dicts is
     carried over as it is.  For ``models/transformer.py``: ``embed.tok``
     (and ``embed.unembed`` untied), the [L]-stacked ``layers.{attn_norm,
-    mlp_norm, attn.{wq, wk, wv, wo [, q_norm, k_norm]}, mlp.{w_gate, w_up,
-    w_down}}`` and ``final_norm``.  For ``models/griffin.py``:
-    ``embed.tok``, the [G]-stacked ``groups.{rec0, rec1}.{norm, w_x,
-    w_gate, conv, w_r, w_i, lam, w_out}``, ``groups.attn.{norm, wq, wkv,
-    wo}``, ``groups.{mlp0, mlp1, mlp2}.{norm, w_gate, w_up, w_down}``, the
-    unstacked ``tail_rec{t}``/``tail_mlp{t}`` and ``final_norm``.  Same
-    dtypes (bfloat16 kept), same ``[d_in, d_out]`` layout, so ``x @ w``
-    reads as in the JAX package."""
+    mlp_norm, attn.{wq, wk, wv, wo [, q_norm, k_norm]}}`` with
+    ``layers.mlp.{w_gate, w_up, w_down}`` (dense) or ``layers.moe.{router,
+    w_gate, w_up, w_down [, shared.{w_gate, w_up, w_down}]}`` (moe: experts
+    [L, E, D, F] and [L, E, F, D]), ``final_norm``, and a vlm's
+    ``patch_proj``.  For ``models/griffin.py``: ``embed.tok``, the
+    [G]-stacked ``groups.{rec0, rec1}.{norm, w_x, w_gate, conv, w_r, w_i,
+    lam, w_out}``, ``groups.attn.{norm, wq, wkv, wo}``, ``groups.{mlp0,
+    mlp1, mlp2}.{norm, w_gate, w_up, w_down}``, the unstacked
+    ``tail_rec{t}``/``tail_mlp{t}`` and ``final_norm``.  For
+    ``models/xlstm.py``: ``embed.tok``, ``mlstm.{norm, w_up, w_gate, w_q,
+    w_k, w_v, w_if, conv, w_down, out_norm}`` stacked [G, 7, ...],
+    ``slstm.{norm, w_in, r, ffn_norm, w_ff_gate, w_ff_up, w_ff_down}``
+    stacked [G, ...], ``final_norm`` and ``unembed``.  For
+    ``models/encdec.py``: ``enc_layers.{attn_norm, attn, mlp_norm, mlp}``
+    and ``dec_layers.{self_norm, self_attn, cross_norm, cross_attn,
+    mlp_norm, mlp}`` stacked [L], ``embed.tok``, ``unembed``, ``enc_norm``
+    and ``dec_norm``.  Same dtypes (bfloat16 kept), same ``[d_in, d_out]``
+    layout, so ``x @ w`` reads as in the JAX package."""
     return {k: (lm_params_from_tree(v, device) if isinstance(v, dict)
                 else _lm_leaf(v, device))
             for k, v in tree.items()}

@@ -1,2 +1,3 @@
-"""Port of ``repro.models``: the paper's CIFAR CNN, the dense LMs
-(layers, transformer, registry) and the griffin family (griffin)."""
+"""Port of ``repro.models``: the paper's CIFAR CNN, the decoder-only LMs
+(layers, transformer: dense, moe, vlm), the registry, and the griffin,
+xlstm and encdec families."""

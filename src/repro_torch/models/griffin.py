@@ -47,7 +47,8 @@ from repro_torch.models.layers import (LMConfig, _flash_ok, apply_rope,
                                        dense_init, embed_apply, embed_init,
                                        flash_attention, rms_norm,
                                        softmax_xent)
-from repro_torch.models.transformer import _unstack, remat_on
+from repro_torch.models.transformer import (_unstack, init_stacked,
+                                            remat_on)
 
 GROUP = ("rec", "rec", "attn")
 C_SCALE = 8.0          # the paper's c constant
@@ -255,35 +256,15 @@ def _init_group(gen: torch.Generator, cfg: LMConfig) -> dict:
             "mlp2": init_mlp_block(gen, cfg)}
 
 
-def _put(dst: dict, src: dict, g: int) -> None:
-    for k, v in src.items():
-        if isinstance(v, dict):
-            _put(dst[k], v, g)
-        else:
-            dst[k][g] = v
-
-
-def _empty_stacked(tree: dict, n: int) -> dict:
-    return {k: (_empty_stacked(v, n) if isinstance(v, dict)
-                else v.new_empty((n,) + v.shape)) for k, v in tree.items()}
-
-
 def init(generator: torch.Generator, cfg: LMConfig) -> dict:
     """Random parameters drawn from ``generator``, on its device.  Each
     group is drawn and copied into the stacked [G] leaves at once, so at
     most one group's parameters exist twice."""
     G, tail = _layout(cfg)
     p = {"embed": {"tok": embed_init(generator, cfg.vocab, cfg.d_model,
-                                     cfg.param_dtype)}}
-    groups = None
-    for g in range(G):
-        one = _init_group(generator, cfg)
-        if groups is None:
-            groups = _empty_stacked(one, G)
-        _put(groups, one, g)
-        del one
-    p["groups"] = groups
-    p["final_norm"] = _zeros(cfg, cfg.d_model, generator)
+                                     cfg.param_dtype)},
+         "groups": init_stacked(lambda: _init_group(generator, cfg), G),
+         "final_norm": _zeros(cfg, cfg.d_model, generator)}
     for t in range(tail):
         p[f"tail_rec{t}"] = init_recurrent_block(generator, cfg)
         p[f"tail_mlp{t}"] = init_mlp_block(generator, cfg)

@@ -1,16 +1,17 @@
-"""Building blocks of the dense LMs — the port of ``repro.models.layers``
+"""Building blocks of the LMs — the port of ``repro.models.layers``
 (configs, initializers, norms, rotary embeddings, attention with a KV
-cache, the gated MLP, embedding and the cross-entropy).
+cache and cross-attention, the gated MLP, the MoE layer, embedding and the
+cross-entropy).
 
 Functional, as in the JAX package: ``init_*`` build dicts of tensors,
 ``*_apply`` consume them, and weights keep the JAX layout ``[d_in, d_out]``
 so ``x @ w`` reads as there.  ``LMConfig``'s dtypes are torch dtypes.
-``attn_impl`` is kept as a field but does not route: attention over 1024 or
-more tokens goes through ``kernels/ops.flash_attention``, which launches the
-CUDA kernel on a CUDA tensor and runs its plain version on a CPU one.  Not
-ported yet: ``moe_apply`` (raises), ``constrain_batch`` and
-``_context_parallel_flash`` (mesh sharding, no meaning on one card), and
-cross-attention (raises until the encoder-decoder family is ported).
+``attn_impl`` and ``shard_attn_batch`` are kept as fields but do not route:
+attention over 1024 or more tokens goes through ``kernels/ops.flash_attention``
+(the CUDA kernel on a CUDA tensor, its plain version on a CPU one) when the
+kernel takes its head width, else through the plain blockwise
+:func:`flash_attention`.  Not ported: ``constrain_batch`` and
+``_context_parallel_flash`` (mesh sharding, no meaning on one card).
 """
 
 from __future__ import annotations
@@ -21,7 +22,9 @@ from typing import Any
 import torch
 import torch.nn.functional as F
 
+from repro_torch.core.bandit import top_k
 from repro_torch.kernels import ops
+from repro_torch.kernels.flash_attention import HEAD_DIMS
 from repro_torch.kernels.ref import NEG_LOGIT, flash_attention_ref
 
 
@@ -208,40 +211,46 @@ def attention_apply(p: dict, x: torch.Tensor, cfg: LMConfig,
       buffers and ``cache_pos`` 0; decode: x is [B, 1, D] and ``cache_pos``
       the tokens already cached.  The cache is written IN PLACE at
       ``cache_pos`` (the JAX function returns an updated copy) and returned.
+    * cross-attention: ``cross_kv`` the encoder output [B, Senc, D]; K and
+      V come from it, with no rope, no mask and no cache (returns None for
+      the cache), and ``causal`` is taken as False.
 
-    Routes: S > 1 with ``_flash_ok`` over the attended keys goes blockwise —
-    through ``ops.flash_attention`` (the CUDA kernel on the card) when the
-    keys are exactly x's own (no cache, or a prefill at position 0) and
-    there is no window, else through :func:`flash_attention` with its masks;
-    everything else (decode, prompts under 1024 tokens) is the einsum path.
-    A prefill at position 0 attends causally over its own keys, so the
-    kernel sees the prompt's k and v, not the max_len cache: the same
-    function as the JAX package's masked pass over the cache.
+    Routes, decided by shape before any launch: S > 1 with ``_flash_ok``
+    over the attended keys goes blockwise — through ``ops.flash_attention``
+    (the CUDA kernel on the card) when the keys are exactly x's own (no
+    cache, or a prefill at position 0) or the encoder's, there is no window
+    and the kernel takes the head width (``HEAD_DIMS``), else through the
+    plain :func:`flash_attention` with its masks (kimi-k2's dh 112 at full
+    width); everything else (decode, prompts under 1024 tokens) is the
+    einsum path.  A prefill at position 0 attends causally over its own
+    keys, so the kernel sees the prompt's k and v, not the max_len cache:
+    the same function as the JAX package's masked pass over the cache.
     """
-    if cross_kv is not None:
-        raise NotImplementedError("cross-attention waits for the "
-                                  "encoder-decoder family (ROADMAP Queue 1 "
-                                  "item 5)")
     b, s, _ = x.shape
     dh, h, kv = cfg.head_dim, cfg.n_heads, cfg.n_kv_heads
     cdt = cfg.compute_dtype
+    cross = cross_kv is not None
+    src = cross_kv if cross else x
 
     q = (x @ p["wq"].to(cdt)).view(b, s, h, dh)
-    k = (x @ p["wk"].to(cdt)).view(b, s, kv, dh)
-    v = (x @ p["wv"].to(cdt)).view(b, s, kv, dh)
+    k = (src @ p["wk"].to(cdt)).view(b, src.shape[1], kv, dh)
+    v = (src @ p["wv"].to(cdt)).view(b, src.shape[1], kv, dh)
     if cfg.qk_norm:
         q = rms_norm(q, p["q_norm"], cfg.norm_eps)
         k = rms_norm(k, p["k_norm"], cfg.norm_eps)
-    q = apply_rope(q, positions, cfg.rope_theta)
-    k = apply_rope(k, positions, cfg.rope_theta)
+    if cross:
+        causal, window, kv_cache = False, None, None
+    else:
+        q = apply_rope(q, positions, cfg.rope_theta)
+        k = apply_rope(k, positions, cfg.rope_theta)
 
     if kv_cache is not None:
         kv_cache["k"][:, cache_pos:cache_pos + s] = k
         kv_cache["v"][:, cache_pos:cache_pos + s] = v
     q = q.reshape(b, s, kv, cfg.q_per_kv, dh)
-    n_keys = s if kv_cache is None else cache_pos + s
+    n_keys = k.shape[1] if kv_cache is None else cache_pos + s
     if s > 1 and _flash_ok(s, n_keys):
-        if window is None and n_keys == s:
+        if window is None and n_keys == k.shape[1] and dh in HEAD_DIMS:
             out = ops.flash_attention(q, k, v, causal)
         else:
             ck = k if kv_cache is None else kv_cache["k"][:, :n_keys]
@@ -253,13 +262,14 @@ def attention_apply(p: dict, x: torch.Tensor, cfg: LMConfig,
     else:
         if kv_cache is not None:
             k, v = kv_cache["k"], kv_cache["v"]
-        kv_pos = torch.arange(k.shape[1], device=x.device)
         logits = torch.einsum("bskgd,btkd->bkgst", q, k).float() * dh ** -0.5
-        q_pos = positions if positions.dim() == 1 else positions[0]
-        mask = _mha_mask(q_pos, kv_pos, window, causal=causal)
-        if kv_cache is not None:
-            mask = mask & (kv_pos <= cache_pos + s - 1)[None, :]
-        logits = torch.where(mask, logits, NEG_LOGIT)
+        if not cross:
+            kv_pos = torch.arange(k.shape[1], device=x.device)
+            q_pos = positions if positions.dim() == 1 else positions[0]
+            mask = _mha_mask(q_pos, kv_pos, window, causal=causal)
+            if kv_cache is not None:
+                mask = mask & (kv_pos <= cache_pos + s - 1)[None, :]
+            logits = torch.where(mask, logits, NEG_LOGIT)
         attn = torch.softmax(logits, dim=-1).to(cdt)
         out = torch.einsum("bkgst,btkd->bskgd", attn, v).reshape(b, s, h * dh)
     return out @ p["wo"].to(cdt), kv_cache
@@ -295,9 +305,97 @@ def mlp_apply(p: dict, x: torch.Tensor, cfg: LMConfig) -> torch.Tensor:
     return (g * u) @ p["w_down"].to(cdt)
 
 
+# ---------------------------------------------------------------------------
+# MoE: top-k router + capacity-based scatter/gather dispatch (sort-free)
+# ---------------------------------------------------------------------------
+
+def init_moe(gen: torch.Generator, cfg: LMConfig) -> dict:
+    """Router [D, E] float32, experts' ``w_gate``/``w_up`` [E, D, F] and
+    ``w_down`` [E, F, D]; with ``n_shared`` a shared expert, a gated MLP of
+    width ``d_ff_expert * n_shared``."""
+    mc = cfg.moe
+    e, f, d = mc.n_experts, mc.d_ff_expert, cfg.d_model
+
+    def experts(*shape, scale):
+        return (torch.randn(shape, generator=gen, device=gen.device)
+                * scale).to(cfg.param_dtype)
+    p = {"router": dense_init(gen, d, e, torch.float32),
+         "w_gate": experts(e, d, f, scale=d ** -0.5),
+         "w_up": experts(e, d, f, scale=d ** -0.5),
+         "w_down": experts(e, f, d, scale=f ** -0.5)}
+    if mc.n_shared:
+        p["shared"] = init_mlp(gen, cfg, d_ff=f * mc.n_shared)
+    return p
+
+
+def moe_capacity(n_tokens: int, mc: MoEConfig) -> int:
+    """Slots per expert: Python's ``round`` on Python floats (half to even),
+    as the JAX package computes it."""
+    return int(max(1, round(n_tokens * mc.top_k / mc.n_experts
+                            * mc.capacity_factor)))
+
+
+def moe_route(xt: torch.Tensor, router: torch.Tensor, mc: MoEConfig):
+    """The router over [T, D] tokens: (probs [T, E] float32, expert indices
+    [T, k]) — ``lax.top_k``'s indices: value descending, ties to the lower
+    index."""
+    probs = torch.softmax(xt.float() @ router.float(), dim=-1)
+    return probs, top_k(probs.detach(), mc.top_k)
+
+
+def moe_slots(idx: torch.Tensor, mc: MoEConfig):
+    """Where each of the [T * k] assignments (token-major) goes: (slot in
+    the [E * cap] buffer, or ``E * cap`` when dropped; keep bool; cap).  An
+    assignment's place within its expert counts the assignments to that
+    expert before it in token-major [T, k] order, so the same tokens
+    overflow as in the JAX package."""
+    cap = moe_capacity(idx.shape[0], mc)
+    flat_e = idx.reshape(-1)
+    # [E, T * k], so the count runs along the contiguous axis
+    onehot = F.one_hot(flat_e, mc.n_experts).t().contiguous()
+    before = (onehot.cumsum(1) - onehot).gather(0, flat_e[None])[0]
+    keep = before < cap
+    slot = torch.where(keep, flat_e * cap + before,
+                       torch.full_like(flat_e, mc.n_experts * cap))
+    return slot, keep, cap
+
+
 def moe_apply(p: dict, x: torch.Tensor, cfg: LMConfig):
-    raise NotImplementedError("the MoE layer waits for the moe family "
-                              "(ROADMAP Queue 1 item 5)")
+    """Returns (out [B, S, D], aux_loss scalar).  Capacity-dropping
+    dispatch: an expert takes at most ``moe_capacity(B * S)`` assignments
+    and drops the rest (GShard/Switch semantics); the kept tokens are
+    scattered into [E, cap, D] buffers, every expert runs its SwiGLU as
+    dense batched matmuls [E, cap, D] x [E, D, F], and the results are
+    gathered back, weighted by the renormalised gates and summed per token.
+    The auxiliary loss is Switch's, E * sum_e f_e * p_e times
+    ``router_aux_weight``, with f_e the share of tokens whose first choice
+    is e."""
+    mc = cfg.moe
+    b, s, d = x.shape
+    cdt = cfg.compute_dtype
+    e, k = mc.n_experts, mc.top_k
+    t = b * s
+    xt = x.reshape(t, d)
+    probs, idx = moe_route(xt, p["router"], mc)
+    gate = probs.gather(1, idx)
+    gate = gate / gate.sum(-1, keepdim=True).clamp_min(1e-9)
+    slot, keep, cap = moe_slots(idx, mc)
+    ce = F.one_hot(idx[:, 0], e).float().mean(0)
+    aux = e * (probs.mean(0) * ce).sum() * mc.router_aux_weight
+
+    tok = torch.arange(t, device=x.device).repeat_interleave(k)
+    buf = xt.new_zeros((e * cap + 1, d), dtype=cdt)
+    buf = buf.index_put((slot,), xt[tok].to(cdt))      # row E*cap: dropped
+    ebuf = buf[:-1].view(e, cap, d)
+    g = F.silu(torch.bmm(ebuf, p["w_gate"].to(cdt)))
+    u = torch.bmm(ebuf, p["w_up"].to(cdt))
+    y = torch.bmm(g * u, p["w_down"].to(cdt)).view(e * cap, d)
+    y = torch.cat([y, y.new_zeros((1, d))])
+    w = (gate.reshape(-1) * keep).to(cdt)
+    out = (y[slot] * w[:, None]).view(t, k, d).sum(1)
+    if mc.n_shared:
+        out = out + mlp_apply(p["shared"], xt, cfg)
+    return out.view(b, s, d), aux
 
 
 # ---------------------------------------------------------------------------

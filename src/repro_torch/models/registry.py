@@ -1,16 +1,17 @@
 """Architecture registry: ``--arch <id>`` -> a uniform :class:`ModelApi` —
-the port of ``repro.models.registry`` for the dense and griffin families.
+the port of ``repro.models.registry``.
 
   init(generator)                         -> params
   forward(params, batch)                  -> (logits, aux)
   loss_fn(params, batch)                  -> scalar
   prefill(params, batch, max_len=None)    -> (last_logits, cache, pos)
   decode_step(params, cache, tokens, pos) -> (logits, cache)
+  param_counts()                          -> (total, active)
 
-``ARCH_MODULES`` lists every architecture of the JAX package; only the
-dense ones and recurrentgemma-9b (griffin) have configs and model code in
-the port so far, and building any other raises ``NotImplementedError``
-naming its ROADMAP item.
+``ARCH_MODULES`` lists every architecture of the JAX package, each with its
+config in ``repro_torch.configs`` and its family's model code.  The JAX
+module's ``input_specs``/``decode_state_specs`` (abstract shapes for the
+dry run) have no counterpart: ``launch/serve.make_batch`` makes the inputs.
 """
 
 from __future__ import annotations
@@ -20,7 +21,10 @@ import functools
 import importlib
 from typing import Callable
 
+import torch
+
 from repro_torch.models.layers import LMConfig
+from repro_torch.utils.trees import tree_leaves
 
 ARCH_MODULES = {
     "yi-9b": "yi_9b",
@@ -43,8 +47,21 @@ ARCH_FAMILIES = {
     "recurrentgemma-9b": "griffin",
 }
 
-FAMILY_MODULES = {"dense": "repro_torch.models.transformer",
-                  "griffin": "repro_torch.models.griffin"}
+FAMILY_MODULES = {
+    "dense": "repro_torch.models.transformer",
+    "moe": "repro_torch.models.transformer",
+    "vlm": "repro_torch.models.transformer",
+    "xlstm": "repro_torch.models.xlstm",
+    "griffin": "repro_torch.models.griffin",
+    "encdec": "repro_torch.models.encdec",
+}
+
+
+class _ShapeGenerator(torch.Generator):
+    """A CPU generator that reports the ``meta`` device, so an ``init``
+    that allocates on ``generator.device`` builds shapes only: nothing is
+    drawn and nothing is allocated."""
+    device = torch.device("meta")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -57,19 +74,40 @@ class ModelApi:
     prefill: Callable
     decode_step: Callable
 
+    def param_shapes(self) -> dict:
+        """The parameter tree on the ``meta`` device: shapes and dtypes,
+        no storage (the full kimi-k2 counts on any machine)."""
+        return self.init(_ShapeGenerator())
+
+    def param_counts(self) -> tuple[int, int]:
+        """(total, active) parameter counts, as the JAX package computes
+        them: with MoE, ``active`` keeps top_k / n_experts of the routed
+        experts' weights (the shared expert and the router count whole)."""
+        shapes = self.param_shapes()
+        total = sum(x.numel() for x in tree_leaves(shapes))
+        active = total
+        mc = self.cfg.moe
+        if mc is not None:
+            moe = shapes["layers"]["moe"]
+            expert = sum(moe[k].numel() for k in ("w_gate", "w_up", "w_down"))
+            active = total - expert + int(expert * mc.top_k / mc.n_experts)
+        return total, active
+
 
 @functools.lru_cache(maxsize=None)
-def build(arch: str, reduced: bool = False) -> ModelApi:
+def build(arch: str, reduced: bool = False,
+          n_layers: int | None = None) -> ModelApi:
+    """The model API of ``arch`` (its ``REDUCED`` config with ``reduced``);
+    ``n_layers`` cuts the depth (decoder layers for enc-dec, a multiple of
+    8 for xlstm) and keeps every width: a full-width model that one card
+    cannot hold whole."""
     if arch not in ARCH_MODULES:
         raise ValueError(f"unknown arch {arch!r}; one of {list(ARCH_MODULES)}")
-    family = ARCH_FAMILIES[arch]
-    if family not in FAMILY_MODULES:
-        raise NotImplementedError(
-            f"{arch}: the {family} family is not ported yet (ROADMAP Queue 1 "
-            f"item 5)")
     mod = importlib.import_module(f"repro_torch.configs.{ARCH_MODULES[arch]}")
     cfg: LMConfig = mod.REDUCED if reduced else mod.CONFIG
-    fam = importlib.import_module(FAMILY_MODULES[family])
+    if n_layers is not None:
+        cfg = dataclasses.replace(cfg, n_layers=n_layers)
+    fam = importlib.import_module(FAMILY_MODULES[cfg.family])
     return ModelApi(
         name=arch, cfg=cfg,
         init=lambda generator: fam.init(generator, cfg),

@@ -1,10 +1,12 @@
-"""Decoder-only transformer, the dense family — the port of
-``repro.models.transformer``.
+"""Decoder-only transformer, the dense, moe and vlm families — the port
+of ``repro.models.transformer``.
 
 Parameters are the JAX package's tree as a nested dict of tensors, the
 per-layer ones stacked on a leading [L] axis (``layers.attn.wq`` is
-[L, d_model, H * dh]); the layer stack is a Python loop over that axis where
-the JAX package scans.  Entry points:
+[L, d_model, H * dh]; a moe layer has ``layers.moe.{router, w_gate, w_up,
+w_down[, shared]}`` where a dense one has ``layers.mlp``; a vlm adds
+``patch_proj`` [patch_embed_dim, d_model]); the layer stack is a Python
+loop over that axis where the JAX package scans.  Entry points:
 
   * ``forward(params, batch, cfg)`` and ``loss_fn`` — the full sequence,
     differentiable (``launch/steps.make_train_step`` trains through it);
@@ -14,10 +16,16 @@ the JAX package scans.  Entry points:
   * ``prefill(params, batch, cfg, max_len)`` — builds the KV cache;
   * ``decode_step(params, cache, tokens, pos, cfg)`` — one token.
 
+A vlm batch carries ``patch_embeds`` [B, n_patches, patch_embed_dim]
+beside ``tokens``: the projected patches come before the text, so a
+prefill's ``pos`` counts them and decode goes on at n_patches + text.
+``forward`` returns the MoE auxiliary loss summed over the layers (0 for
+the other families), and ``loss_fn`` adds it to the cross-entropy of the
+text positions.
+
 The KV cache is ``{"k", "v"}`` of [L, B, max_len, KV, dh] in
 ``compute_dtype``; ``decode_step`` writes it in place (the JAX function
-returns an updated copy) and returns it.  The ``moe`` and ``vlm`` families
-raise ``NotImplementedError``.
+returns an updated copy) and returns it.
 """
 
 from __future__ import annotations
@@ -27,14 +35,9 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models.layers import (LMConfig, attention_apply, embed_apply,
                                        init_attention, init_embed,
-                                       init_kv_cache, init_mlp, mlp_apply,
-                                       rms_norm, softmax_xent, unembed_apply)
-
-
-def _dense_only(cfg: LMConfig) -> None:
-    if cfg.family != "dense" or cfg.moe is not None:
-        raise NotImplementedError(f"{cfg.name}: the {cfg.family} family is "
-                                  f"not ported yet (ROADMAP Queue 1 item 5)")
+                                       init_kv_cache, init_mlp, init_moe,
+                                       mlp_apply, moe_apply, rms_norm,
+                                       softmax_xent, unembed_apply)
 
 
 # ---------------------------------------------------------------------------
@@ -44,25 +47,56 @@ def _dense_only(cfg: LMConfig) -> None:
 def _init_layer(gen: torch.Generator, cfg: LMConfig) -> dict:
     zeros = lambda: torch.zeros(cfg.d_model, dtype=cfg.param_dtype,
                                 device=gen.device)
-    return {"attn_norm": zeros(), "mlp_norm": zeros(),
-            "attn": init_attention(gen, cfg), "mlp": init_mlp(gen, cfg)}
+    p = {"attn_norm": zeros(), "mlp_norm": zeros(),
+         "attn": init_attention(gen, cfg)}
+    if cfg.moe is not None:
+        p["moe"] = init_moe(gen, cfg)
+    else:
+        p["mlp"] = init_mlp(gen, cfg)
+    return p
 
 
-def _stack(trees: list[dict]) -> dict:
-    return {k: (_stack([t[k] for t in trees]) if isinstance(v, dict)
-                else torch.stack([t[k] for t in trees]))
-            for k, v in trees[0].items()}
+def _empty_stacked(tree: dict, n: int) -> dict:
+    return {k: (_empty_stacked(v, n) if isinstance(v, dict)
+                else v.new_empty((n,) + v.shape)) for k, v in tree.items()}
+
+
+def _put(dst: dict, src: dict, i: int) -> None:
+    for k, v in src.items():
+        if isinstance(v, dict):
+            _put(dst[k], v, i)
+        else:
+            dst[k][i] = v
+
+
+def init_stacked(make, n: int) -> dict:
+    """``n`` trees from ``make()``, drawn in order and stacked on a leading
+    [n] axis: each is copied into preallocated leaves as soon as it is
+    drawn, so at most one draw's parameters exist twice (a full-width
+    stack fits where its double would not)."""
+    out = None
+    for i in range(n):
+        one = make()
+        if out is None:
+            out = _empty_stacked(one, n)
+        _put(out, one, i)
+        del one
+    return out
 
 
 def init(generator: torch.Generator, cfg: LMConfig) -> dict:
     """Random parameters drawn from ``generator``, on its device."""
-    _dense_only(cfg)
-    embed = init_embed(generator, cfg)
-    layers = _stack([_init_layer(generator, cfg)
-                     for _ in range(cfg.n_layers)])
-    return {"embed": embed, "layers": layers,
-            "final_norm": torch.zeros(cfg.d_model, dtype=cfg.param_dtype,
-                                      device=generator.device)}
+    p = {"embed": init_embed(generator, cfg),
+         "layers": init_stacked(lambda: _init_layer(generator, cfg),
+                                cfg.n_layers),
+         "final_norm": torch.zeros(cfg.d_model, dtype=cfg.param_dtype,
+                                   device=generator.device)}
+    if cfg.family == "vlm":
+        p["patch_proj"] = (torch.randn(
+            (cfg.patch_embed_dim, cfg.d_model), generator=generator,
+            device=generator.device) * cfg.patch_embed_dim ** -0.5
+        ).to(cfg.param_dtype)
+    return p
 
 
 def _layer(params: dict, i: int) -> dict:
@@ -94,47 +128,61 @@ def remat_on(cfg) -> bool:
 
 def _block(pl: dict, x: torch.Tensor, cfg: LMConfig, positions,
            kv_cache=None, cache_pos=None):
-    """One transformer block.  Returns (x, kv_cache, aux); the dense
-    family's MoE auxiliary loss is 0."""
+    """One transformer block.  Returns (x, kv_cache, aux): the MoE layer's
+    auxiliary loss, or 0.0 with a dense MLP."""
     h, kv_cache = attention_apply(
         pl["attn"], rms_norm(x, pl["attn_norm"], cfg.norm_eps), cfg,
         positions, kv_cache=kv_cache, cache_pos=cache_pos,
         window=cfg.sliding_window)
     x = x + h
     y = rms_norm(x, pl["mlp_norm"], cfg.norm_eps)
-    m = mlp_apply(pl["mlp"], y, cfg)
-    return x + m, kv_cache, 0.0
+    if cfg.moe is not None:
+        m, aux = moe_apply(pl["moe"], y, cfg)
+    else:
+        m, aux = mlp_apply(pl["mlp"], y, cfg), 0.0
+    return x + m, kv_cache, aux
 
 
 def _embed_inputs(params: dict, batch: dict, cfg: LMConfig) -> torch.Tensor:
-    """tokens [B, S] -> activations [B, S, D] in ``compute_dtype``."""
-    _dense_only(cfg)
-    return embed_apply(params["embed"], batch["tokens"], cfg)
+    """tokens [B, S] (and a vlm's patch_embeds [B, P, pd]) -> activations
+    [B, (P +) S, D] in ``compute_dtype``, the image prefix first."""
+    x = embed_apply(params["embed"], batch["tokens"], cfg)
+    if cfg.family == "vlm":
+        cdt = cfg.compute_dtype
+        pe = batch["patch_embeds"].to(cdt) @ params["patch_proj"].to(cdt)
+        x = torch.cat([pe, x], dim=1)
+    return x
 
 
 def _train_block(pl: dict, x: torch.Tensor, positions, cfg: LMConfig):
-    return _block(pl, x, cfg, positions)[0]
+    x, _, aux = _block(pl, x, cfg, positions)
+    return x, aux
 
 
 def forward(params: dict, batch: dict, cfg: LMConfig):
-    """Full-sequence forward: returns (logits [B, S, V], moe_aux = 0)."""
+    """Full-sequence forward: returns (logits [B, S, V], moe_aux), the
+    auxiliary loss summed over the layers (0 without MoE)."""
     x = _embed_inputs(params, batch, cfg)
     positions = torch.arange(x.shape[1], device=x.device)
     aux = torch.zeros((), device=x.device)
     remat = remat_on(cfg)
     for pl in _unstack(params["layers"], cfg.n_layers):
         if remat:
-            x = checkpoint(_train_block, pl, x, positions, cfg,
-                           use_reentrant=False)
+            x, a = checkpoint(_train_block, pl, x, positions, cfg,
+                              use_reentrant=False)
         else:
-            x = _train_block(pl, x, positions, cfg)
+            x, a = _train_block(pl, x, positions, cfg)
+        aux = aux + a
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
     return unembed_apply(params["embed"], x, cfg), aux
 
 
 def loss_fn(params: dict, batch: dict, cfg: LMConfig) -> torch.Tensor:
-    """Next-token cross-entropy of :func:`forward`."""
+    """Next-token cross-entropy of :func:`forward` over the text positions
+    (a vlm's image prefix is cut off), plus the MoE auxiliary loss."""
     logits, aux = forward(params, batch, cfg)
+    if cfg.family == "vlm":
+        logits = logits[:, cfg.n_patches:]
     return softmax_xent(logits[:, :-1], batch["tokens"][:, 1:]) + aux
 
 
@@ -145,7 +193,7 @@ def loss_fn(params: dict, batch: dict, cfg: LMConfig) -> torch.Tensor:
 def prefill(params: dict, batch: dict, cfg: LMConfig,
             max_len: int | None = None):
     """Builds the KV cache over the prompt; returns (last_logits [B, 1, V],
-    cache, pos = S)."""
+    cache, pos = S, a vlm's patches included)."""
     x = _embed_inputs(params, batch, cfg)
     b, s, _ = x.shape
     max_len = max_len or s

@@ -28,16 +28,24 @@ torch = pytest.importorskip("torch")
 import jax.numpy as jnp  # noqa: E402
 
 from repro.configs import (codeqwen1_5_7b as j_codeqwen,  # noqa: E402
-                           qwen3_1_7b as j_qwen3, smollm_135m as j_smollm,
+                           kimi_k2 as j_kimi, llava_next_34b as j_llava,
+                           phi3_5_moe as j_phi, qwen3_1_7b as j_qwen3,
+                           seamless_m4t_medium as j_seamless,
+                           smollm_135m as j_smollm, xlstm_1_3b as j_xlstm,
                            yi_9b as j_yi)
+from repro.launch import serve as jserve  # noqa: E402
 from repro.models import layers as jl  # noqa: E402
 from repro.models import registry as jreg  # noqa: E402
 from repro.models import transformer as jt  # noqa: E402
 from repro.sim import engine_jax  # noqa: E402
 from repro.sim.scenarios import get_scenario as jget_scenario  # noqa: E402
 from repro_torch.configs import (codeqwen1_5_7b as t_codeqwen,  # noqa: E402
-                                 qwen3_1_7b as t_qwen3,
-                                 smollm_135m as t_smollm, yi_9b as t_yi)
+                                 kimi_k2 as t_kimi,
+                                 llava_next_34b as t_llava,
+                                 phi3_5_moe as t_phi, qwen3_1_7b as t_qwen3,
+                                 seamless_m4t_medium as t_seamless,
+                                 smollm_135m as t_smollm,
+                                 xlstm_1_3b as t_xlstm, yi_9b as t_yi)
 from repro_torch.convert import lm_params_from_tree  # noqa: E402
 from repro_torch.launch import serve  # noqa: E402
 from repro_torch.models import layers as tl  # noqa: E402
@@ -45,6 +53,7 @@ from repro_torch.models import registry as treg  # noqa: E402
 from repro_torch.models import transformer as tt  # noqa: E402
 from repro_torch.sim import engine as tengine  # noqa: E402
 from repro_torch.sim.scenarios import get_scenario  # noqa: E402
+from repro_torch.utils.trees import tree_leaves  # noqa: E402
 
 TOL = {"float32": dict(rtol=1e-5, atol=1e-5),
        "bfloat16": dict(rtol=2e-2, atol=3e-2)}
@@ -52,7 +61,14 @@ CACHE_TOL = {"float32": dict(rtol=1e-5, atol=5e-5),
              "bfloat16": dict(rtol=2e-2, atol=0.1)}
 CONFIGS = {"smollm-135m": (j_smollm, t_smollm),
            "qwen3-1.7b": (j_qwen3, t_qwen3), "yi-9b": (j_yi, t_yi),
-           "codeqwen1.5-7b": (j_codeqwen, t_codeqwen)}
+           "codeqwen1.5-7b": (j_codeqwen, t_codeqwen),
+           "phi3.5-moe-42b-a6.6b": (j_phi, t_phi),
+           "kimi-k2-1t-a32b": (j_kimi, t_kimi),
+           "llava-next-34b": (j_llava, t_llava),
+           "xlstm-1.3b": (j_xlstm, t_xlstm),
+           "seamless-m4t-medium": (j_seamless, t_seamless)}
+NEW_FAMILIES = ("phi3.5-moe-42b-a6.6b", "kimi-k2-1t-a32b", "llava-next-34b",
+                "xlstm-1.3b", "seamless-m4t-medium")
 DTYPES = {"float32": (jnp.float32, torch.float32),
           "bfloat16": (jnp.bfloat16, torch.bfloat16)}
 
@@ -103,17 +119,34 @@ def test_config_fields_match_jax(arch, which):
     assert (tcfg.head_dim, tcfg.q_per_kv) == (jcfg.head_dim, jcfg.q_per_kv)
 
 
-def test_registry_lists_every_arch_and_raises_for_unported_families():
+def test_registry_builds_every_arch_reduced_with_its_family():
     assert treg.list_archs() == jreg.list_archs()
     assert treg.ARCH_MODULES == jreg.ARCH_MODULES
     for arch in treg.ARCH_MODULES:
-        family = treg.ARCH_FAMILIES[arch]
-        if family in treg.FAMILY_MODULES:
-            api = treg.build(arch, reduced=True)
-            assert api.cfg.family == family and api.name == arch
-        else:
-            with pytest.raises(NotImplementedError, match="ROADMAP"):
-                treg.build(arch, reduced=True)
+        api = treg.build(arch, reduced=True)
+        assert api.cfg.family == treg.ARCH_FAMILIES[arch] and api.name == arch
+        assert api.cfg.family == jreg.build(arch, reduced=True).cfg.family
+        assert type(api.init(torch.Generator().manual_seed(0))) is dict
+
+
+@pytest.mark.parametrize("arch", list(treg.ARCH_MODULES))
+def test_param_counts_match_jax(arch):
+    """(total, active) of every full config, from shapes on the ``meta``
+    device: the full kimi-k2 (1.03e12 parameters) allocates nothing."""
+    api = treg.build(arch)
+    want = jreg.build(arch).param_counts()
+    assert api.param_counts() == tuple(int(n) for n in want)
+    assert all(t.device.type == "meta"
+               for t in tree_leaves(api.param_shapes()))
+
+
+def test_registry_cuts_depth_and_keeps_width():
+    full = treg.build("phi3.5-moe-42b-a6.6b")
+    cut = treg.build("phi3.5-moe-42b-a6.6b", n_layers=8)
+    assert cut.cfg == dataclasses.replace(full.cfg, n_layers=8)
+    total, _ = cut.param_counts()
+    per_layer = (full.param_counts()[0] - total) // 24
+    assert total + 24 * per_layer == full.param_counts()[0]
 
 
 def test_lm_params_from_tree_keeps_layout_and_bfloat16():
@@ -294,6 +327,45 @@ def test_serve_main_runs_on_the_cpu(capsys):
     again = serve.main(["--device", "cpu", "--batch", "2", "--prompt-len",
                         "12", "--decode-steps", "3", "--seed", "4"])
     np.testing.assert_array_equal(again["tokens"], out["tokens"])
+
+
+@pytest.mark.parametrize("arch", ["llava-next-34b", "seamless-m4t-medium",
+                                  "smollm-135m"])
+@pytest.mark.parametrize("prompt_len", [5, 24])
+def test_make_batch_is_bitwise_jax(arch, prompt_len):
+    """The same seed gives the JAX package's arrays bit for bit: a vlm's
+    tokens then bfloat16 patch embeddings, an enc-dec's bfloat16 frames then
+    tokens (prompt 5 is shorter than the reduced llava's 8 patches: one
+    text token)."""
+    got = serve.make_batch(treg.build(arch, reduced=True),
+                           np.random.default_rng(7), 2, prompt_len)
+    want = jserve.make_batch(jreg.build(arch, reduced=True),
+                             np.random.default_rng(7), 2, prompt_len)
+    assert got.keys() == want.keys()
+    for name, w in want.items():
+        g = got[name]
+        w = np.asarray(w)
+        assert tuple(g.shape) == w.shape, name
+        if w.dtype.name == "bfloat16":
+            assert g.dtype == torch.bfloat16
+            np.testing.assert_array_equal(g.view(torch.int16).numpy(),
+                                          w.view(np.int16), err_msg=name)
+        else:
+            assert g.dtype == torch.int32
+            np.testing.assert_array_equal(g.numpy(), w, err_msg=name)
+
+
+@pytest.mark.parametrize("arch", NEW_FAMILIES)
+def test_serve_main_runs_every_new_family_on_the_cpu(arch, capsys):
+    argv = ["--device", "cpu", "--arch", arch, "--reduced", "--batch", "2",
+            "--prompt-len", "20", "--decode-steps", "3", "--seed", "5"]
+    out = serve.main(argv)
+    assert out["tokens"].shape == (2, 4) and out["device"] == "cpu"
+    assert torch.isfinite(out["logits"]).all()
+    assert torch.isfinite(out["prefill_logits"]).all()
+    assert out["n_params"] == treg.build(arch, reduced=True).param_counts()[0]
+    assert "tok/s" in capsys.readouterr().out
+    np.testing.assert_array_equal(serve.main(argv)["tokens"], out["tokens"])
 
 
 # ---------------------------------------------------------------------------
