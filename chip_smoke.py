@@ -167,6 +167,27 @@ else.  Phases (every mismatch raises, so any failure exits non-zero):
      attention launches a prefill, finite logits, the parameter count,
      prefill ms, decode tok/s, peak memory, profiles of one prefill and one
      decode step (xlstm: one mLSTM and one sLSTM block timed).
+ 17. several devices, inside a NCCL process group of world size 1 on
+     cuda:0 (set up and torn down by the phase; the card's one rank holds
+     every shard, its collectives run through NCCL): (a)
+     ``sweep(shard="grid", devices=4)`` at phase 4a's config cut to 100
+     rounds (paper-baseline, K=10^4, 8 policies x 8 seeds), bitwise the
+     flat sweep with its 800 launches of the sampled round kernel; (b)
+     ``sweep(shard="clients", devices=8)`` at phase 10's K=10^6 (C=10^5, 8
+     x 2 x 20) through the collective shard sum and gather, bitwise the
+     one-process segmented sweep with its 40 top-S launches; (c)
+     ``chunk_rounds=25`` at (a)'s config, and ``accuracy_sweep`` at phase
+     8's full width (2 policies x 2 rounds) with ``chunk_rounds=1`` and with
+     ``shard="clients", devices=4``, each bitwise the plain run (cuDNN
+     deterministic, TF32 off), one FedAvg-combine launch per (policy,
+     round); (d) ``distributed.fl_parallel.make_fl_round`` at smollm-135m's
+     full width (phase 15b's dtype and attention route), 4 cohorts, SGD, 2
+     local steps of 2 x 1024 tokens (batch and sequence cut, nothing else):
+     for every compress mode the combine of one set of trained cohorts
+     against a float64 recomputation of the same combine on the card
+     (COHORT_TOL), and a timed round with its launches (the bf16 attention
+     kernel twice a layer a step, FedAvg once a round but under int8_psum).
+     Rounds/s of (a) and (b), seconds a cohort round and peak memory.
 
 Launch counts are zeroed before each sweep and read after it; each sweep
 must launch its kernels once per (policy, round) (the local top-S once per
@@ -178,11 +199,14 @@ it recorded the kernel); the last line is the device summary.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import math
+import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -3144,6 +3168,350 @@ def phase_families(results: dict) -> None:
     log(f"[16] phase time {time.perf_counter() - t0:.1f} s")
 
 
+# ---------------------------------------------------------------------------
+# phase 17: several devices (NCCL, one rank): the grid- and client-sharded
+# sweeps, chunk_rounds and the cohort-parallel FL round
+# ---------------------------------------------------------------------------
+
+# (d): each entry of the card's combine within half a float32 step of its
+# value plus COHORT_TOL of the magnitude the card sums in float32 there
+# (the weighted terms: 4 products, their float32 sum and, in the int8
+# modes, the code x scale products round a few 2^-24 of it)
+COHORT_TOL = 8 * 2.0 ** -24
+COHORTS, COHORT_STEPS = 4, 2                     # (d)
+COHORT_BATCH, COHORT_SEQ = 2, 1024               # (d): cut from 4 x 4096
+COHORT_WEIGHTS = (1.0, 0.0, 2.0, 1.0)            # cohort 1 unselected
+COHORT_LR, COHORT_RATIO = 1e-3, 0.01
+FL17_POLICIES = ("naive_ucb", "fedcs")     # (c): a score, a greedy
+
+
+def sweeps_equal(label: str, got, want, what: str) -> None:
+    same = np.array_equal(got.round_times, want.round_times) and (
+        want.flags is None or np.array_equal(got.flags, want.flags))
+    if not same:
+        d = np.abs(got.round_times.astype(np.float64) - want.round_times)
+        raise AssertionError(f"[{label}] {what}: max abs diff {d.max():g} s "
+                             f"in {(d > 0).sum()} rounds")
+    log(f"[{label}] {what}: bitwise equal")
+
+
+def fl_equal(label: str, got, want, what: str) -> None:
+    for key in ("selected", "round_times", "accuracy"):
+        if not np.array_equal(getattr(got, key), getattr(want, key)):
+            raise AssertionError(f"[{label}] {what}: {key} differs")
+    log(f"[{label}] {what}: selections, round times and accuracy bitwise "
+        f"equal")
+
+
+@contextlib.contextmanager
+def process_group():
+    """A NCCL process group of world size 1 on cuda:0 (a file rendezvous
+    under build/), destroyed on the way out."""
+    import torch.distributed as dist
+    torch.cuda.set_device(0)
+    (ROOT / "build").mkdir(exist_ok=True)
+    store = Path(tempfile.mkdtemp(prefix="nccl-", dir=ROOT / "build"))
+    dist.init_process_group("nccl", init_method=f"file://{store}/store",
+                            world_size=1, rank=0)
+    try:
+        t0 = time.perf_counter()       # the first collective makes NCCL's
+        dist.all_reduce(torch.zeros(1, device="cuda"))     # communicator
+        torch.cuda.synchronize()
+        log(f"[17] NCCL process group of world size 1 on cuda:0, first "
+            f"collective {time.perf_counter() - t0:.3f} s")
+        yield dist.group.WORLD
+    finally:
+        dist.destroy_process_group()
+        shutil.rmtree(store, ignore_errors=True)
+
+
+def _topk_mask(a: torch.Tensor, k: int) -> torch.Tensor:
+    """The k largest entries of ``a`` (1-D), ties to the lower index."""
+    t = torch.kthvalue(a, a.numel() - k + 1).values
+    keep = a > t
+    tied = torch.nonzero(a == t).flatten()[:k - int(keep.sum())]
+    keep[tied] = True
+    return keep
+
+
+def cohort_reference(mode: str, stacked: torch.Tensor, base: torch.Tensor,
+                     w: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """One leaf's combine recomputed apart from the port's code: the int8
+    codes, shared scales and top-k picks by the JAX package's formulas in
+    float32 (IEEE division by a tensor on the same device, half-to-even
+    rounding), the weighted sum in float64.  ``stacked`` [C, ...] and
+    ``base`` float32, ``w`` the normalised float32 weights, all on one
+    device.  Returns (the combined leaf, the magnitude of the terms the
+    card sums in float32 at each entry; the compressed modes' final base +
+    average rounds once more, which half a float32 step covers), float64."""
+    wv = w.view(-1, *([1] * (stacked.dim() - 1)))
+    eps, c127 = (torch.tensor(x, device=stacked.device) for x in (1e-12,
+                                                                  127.0))
+    if mode == "none":
+        terms = wv.double() * stacked
+        return terms.sum(0), terms.abs().sum(0)
+    d = stacked - base[None]                              # float32
+    if mode == "int8":
+        flat = d.reshape(d.shape[0], -1)
+        scale = (flat.abs().amax(1) + eps) / c127
+        q = torch.clamp(torch.round(flat / scale[:, None]), -127, 127)
+        parts = (q.double() * scale[:, None].double()).view(d.shape)
+    elif mode == "int8_psum":
+        wd = wv * d                                       # float32
+        scale = (wd.abs().max() + eps) / c127
+        q = torch.clamp(torch.round(wd / scale), -127, 127).double()
+        return (base.double() + q.sum(0) * scale.double(),
+                q.abs().sum(0) * scale.double())
+    else:
+        flat = d.reshape(d.shape[0], -1)
+        k = max(1, int(flat.shape[1] * COHORT_RATIO))
+        parts = torch.stack([torch.where(_topk_mask(x.abs(), k), x, 0)
+                             for x in flat]).double().view(d.shape)
+    terms = wv.double() * parts
+    return base.double() + terms.sum(0), terms.abs().sum(0)
+
+
+def cohort_check(mode: str, agg: list, stacked: list, base: list,
+                 w: torch.Tensor) -> tuple[float, float]:
+    """Every leaf of the card's combine ``agg`` against
+    :func:`cohort_reference` on the leaves' device.  Returns (the largest
+    |card - reference| over its allowance, half a float32 step of the
+    entry (widened by 2^-20 for the float64 reference's own rounding) plus
+    COHORT_TOL of the float32 terms there: at most 1 passes; the largest
+    error of the aggregated delta card - base over the largest entry of
+    the reference's delta)."""
+    worst = delta_err = delta_max = 0.0
+    for a, sp, bp in zip(agg, stacked, base):
+        ref, terms = cohort_reference(mode, sp, bp, w)
+        err = (a.double() - ref).abs()
+        mag = torch.maximum(a.abs(), ref.abs().float())
+        ulp = (torch.nextafter(mag, torch.full_like(mag, float("inf")))
+               - mag).double()
+        allow = 0.5 * ulp * (1 + 2.0 ** -20) + COHORT_TOL * terms
+        worst = max(worst, float((err / allow).max()))
+        delta_err = max(delta_err, float(err.max()))
+        delta_max = max(delta_max, float((ref - bp.double()).abs().max()))
+        del ref, terms, err, mag, ulp, allow
+    return worst, delta_err / max(delta_max, 1e-30)
+
+
+def devices_references(a: dict, b: dict, c: dict, fl_expect: dict):
+    """The one-process runs that (a)-(c) are held to, before any group."""
+    flat_a, _ = run_sweep("17a", {"bandit_round_sampled": 8 * 100}, **a)
+    one_b, _ = run_sweep("17b", {"topk_slots": 2 * 20}, devices=8, **b)
+    plain_c, _ = run_fl_sweep("17c", fl_expect, **c)
+    return flat_a, one_b, plain_c
+
+
+def devices_sweeps(results: dict, refs, a: dict, b: dict, c: dict,
+                   fl_expect: dict) -> None:
+    """(a)-(c) inside the process group."""
+    from repro_torch.core import bandit
+    flat_a, one_b, plain_c = refs
+    n_fl = len(FL17_POLICIES) * c["n_rounds"]
+    grid, counts = run_sweep("17a", {"bandit_round_sampled": 8 * 100},
+                             shard="grid", devices=4, **a)
+    sweeps_equal("17a", grid, flat_a, "grid over 4 shards on NCCL rank 0 "
+                 "against the flat sweep")
+    results["bandit_round_sampled"]["devices_launches"] = counts[
+        "bandit_round_sampled"]
+    torch.cuda.reset_peak_memory_stats()
+    seg, counts = run_sweep("17b", {"topk_slots": 2 * 20}, devices=8, **b)
+    sweeps_equal("17b", seg, one_b, "8 client blocks through NCCL's "
+                 "all_reduce / all_gather against the one-process segmented "
+                 "sweep")
+    log(f"[17b] peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 2**20:.1f} MiB")
+    results["topk_slots"]["devices_launches"] = counts["topk_slots"]
+    chunked, _ = run_sweep("17c", {"bandit_round_sampled": 8 * 100},
+                           chunk_rounds=25, **a)
+    sweeps_equal("17c", chunked, flat_a, "chunk_rounds=25 against unchunked")
+    got, _ = run_fl_sweep("17c", fl_expect, chunk_rounds=1, **c)
+    fl_equal("17c", got, plain_c, "accuracy_sweep chunk_rounds=1")
+    streamed, _ = run_fl_sweep(
+        "17c", {"bandit_round_sampled": n_fl, "fedavg_combine": n_fl},
+        fast_sampling=True, **c)
+    n_score = sum(c["n_rounds"] for p in FL17_POLICIES
+                  if bandit.policy_kind(p) == "score")
+    got, counts = run_fl_sweep(
+        "17c", {"topk_slots": n_score, "fedavg_combine": n_fl},
+        shard="clients", devices=4, fast_sampling=True, **c)
+    fl_equal("17c", got, streamed, "accuracy_sweep shard='clients' "
+             "devices=4 (the segmented rounds, 4 client blocks through "
+             "NCCL) against the flat streamed sweep")
+    results["fedavg_combine"]["devices_launches"] = counts["fedavg_combine"]
+    results["topk_slots"]["devices_launches"] += counts["topk_slots"]
+
+
+def cohort_kernel_times(results: dict, n_params: int) -> None:
+    """(d)'s kernel shapes timed: the f32 combine of the 4 cohorts' rows
+    (against its plain version, exact, beside the bound and one einsum)
+    and a bf16 attention call of one layer at 2 x 1024 tokens
+    (``flash_case``: against the plain version, SDPA and the bound)."""
+    from repro_torch.kernels import fedavg as cuda_fedavg
+    from repro_torch.kernels import ref
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(171)
+    rows = torch.randn((COHORTS, n_params), generator=gen, device="cuda")
+    w = torch.tensor(COHORT_WEIGHTS, device="cuda")
+    w = w / w.sum()
+    got = cuda_fedavg.fedavg_combine_cuda(rows, w)
+    if not torch.equal(got, ref.fedavg_combine_ref(rows, w)):
+        raise AssertionError("[17d] fedavg_combine differs from its plain "
+                             "version at the cohort combine's shape")
+    ms = time_ms(lambda: cuda_fedavg.fedavg_combine_cuda(rows, w), 5)
+    pms = time_ms(lambda: ref.fedavg_combine_ref(rows, w), 1)
+    lms = time_ms(lambda: torch.einsum("cn,c->n", rows, w), 5)
+    bms, by = fedavg_bound(1, COHORTS, n_params, 4)
+    log(f"[17d] fedavg_combine (C, N) = ({COHORTS}, {n_params}) f32: equal "
+        f"to its plain version; kernel {ms:.4f} ms, plain {pms:.4f} ms, "
+        f"einsum {lms:.4f} ms, bound {bms:.4f} ms ({by})")
+    del rows, got
+    flash_case(results, (COHORT_BATCH, COHORT_SEQ, COHORT_SEQ, 3, 3, 64, True,
+                         "bfloat16"), gen, "17d")
+
+
+def devices_cohorts(results: dict, group) -> None:
+    """(d): the cohort-parallel FL round at smollm-135m's full width."""
+    from repro_torch.distributed import fl_parallel
+    from repro_torch.models.registry import build
+    from repro_torch.optim.sgd import OptimizerConfig
+    from repro_torch.utils.trees import tree_leaves, tree_map
+    api = build("smollm-135m", reduced=False)
+    cfg = api.cfg
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(17)
+    params = api.init(gen)
+    opt = OptimizerConfig(name="sgd", lr=COHORT_LR, lr_decay=0.0).build()
+    rng = np.random.default_rng(17)
+    batches = {"tokens": torch.tensor(rng.integers(
+        0, cfg.vocab, (COHORTS, COHORT_STEPS, COHORT_BATCH, COHORT_SEQ)),
+        dtype=torch.int32, device="cuda")}
+    weights = torch.tensor(COHORT_WEIGHTS, device="cuda")
+    per_step = 2 * cfg.n_layers if cfg.remat else cfg.n_layers
+    attn = COHORTS * COHORT_STEPS * per_step
+
+    def states():
+        return fl_parallel.init_cohort_states(
+            opt, fl_parallel.stack_for_cohorts(params, COHORTS))
+    # one set of trained cohorts: every mode's combine input
+    local = fl_parallel.make_local_steps(api.loss_fn, opt, COHORT_STEPS)
+    st = states()
+    trained = [local(params, tree_map(lambda x: x[i], st),
+                     {"tokens": batches["tokens"][i]})[0]
+               for i in range(COHORTS)]
+    stacked = tree_map(lambda *xs: torch.stack(xs), *trained)
+    del trained, st
+    leaves_s, leaves_b = tree_leaves(stacked), tree_leaves(params)
+    w_n = weights / weights.sum().clamp_min(1e-9)
+    # the largest leaf (the embedding) once more on the host's CPU, apart
+    # from the card's arithmetic too
+    big = max(range(len(leaves_b)), key=lambda i: leaves_b[i].numel())
+    host_s, host_b = leaves_s[big].cpu(), leaves_b[big].cpu()
+    for mode in fl_parallel.COMPRESS:
+        agg = fl_parallel.fedavg_across_cohorts(
+            stacked, weights, compress=mode, topk_ratio=COHORT_RATIO,
+            base_params=params, group=group)
+        t_ref = time.perf_counter()
+        leaves_a = tree_leaves(agg)
+        worst, delta_err = cohort_check(mode, leaves_a, leaves_s, leaves_b,
+                                        w_n)
+        worst_host, _ = cohort_check(mode, [leaves_a[big].cpu()], [host_s],
+                                     [host_b], w_n.cpu())
+        t_ref = time.perf_counter() - t_ref
+        del agg, leaves_a
+        if not max(worst, worst_host) <= 1.0:
+            raise AssertionError(
+                f"[17d] {mode}: an entry of the combine is "
+                f"{max(worst, worst_host):.3g} x its allowance (half a "
+                f"float32 step + {COHORT_TOL:.3g} of the summed terms) from "
+                f"the recomputation")
+        fl_round = fl_parallel.make_fl_round(
+            api.loss_fn, opt, COHORT_STEPS, compress=mode,
+            topk_ratio=COHORT_RATIO, group=group)
+        st = states()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        t0 = time.perf_counter()
+        new, _, loss = fl_round(params, st, batches, weights)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        counts = check_launches("17d", {
+            "flash_attention_wgmma": attn,
+            "fedavg_combine": int(mode != "int8_psum")})
+        if not (math.isfinite(float(loss)) and all(
+                bool(torch.isfinite(x).all()) for x in tree_leaves(new))):
+            raise AssertionError(f"[17d] {mode}: non-finite round")
+        if mode == "none":
+            results["flash_attention_wgmma"]["devices_launches"] = counts[
+                "flash_attention_wgmma"]
+        log(f"[17d] compress={mode}: combine against its recomputation "
+            f"(float64 sums) at {worst:.6g} of its allowance on the card, "
+            f"{worst_host:.6g} on the host's CPU for the {host_s[0].numel()}"
+            f"-entry leaf (limit 1; half a float32 step + {COHORT_TOL:.3g} "
+            f"of the summed terms), aggregated delta within "
+            f"{delta_err:.3g} of its largest entry (checks {t_ref:.1f} s); "
+            f"round {dt:.3f} s "
+            f"({COHORTS} cohorts x "
+            f"{COHORT_STEPS} SGD steps of {COHORT_BATCH} x {COHORT_SEQ} "
+            f"tokens), loss {float(loss):.5f}, launches {counts}, peak "
+            f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+        del new, st
+    n_params = sum(x.numel() for x in tree_leaves(params))
+    log(f"[17d] smollm-135m full width ({cfg.n_layers} layers, d_model "
+        f"{cfg.d_model}, remat {cfg.remat}, {n_params} parameters); "
+        f"{card_name_and_power()}")
+    del params, stacked, leaves_s, leaves_b, host_s, host_b
+    torch.cuda.empty_cache()
+    cohort_kernel_times(results, n_params)
+
+
+def phase_devices(results: dict) -> None:
+    from repro_torch.fl import engine as fl
+    from repro_torch.models import cnn
+    t0 = time.perf_counter()
+    a = dict(scenario="paper-baseline", etas=(1.5,), seeds=8, n_rounds=100,
+             n_clients=10_000)
+    b = dict(scenario="paper-baseline", etas=(1.5,), seeds=2, n_rounds=20,
+             n_clients=1_000_000, shard="clients")
+    cfg = cnn.CnnConfig()
+    # phase 8's width; the local epochs cut from 5 to 1 (four sweeps run)
+    c = dict(cfg=cfg, policies=FL17_POLICIES, seeds=1, n_rounds=2,
+             n_clients=100, s_round=5, frac_request=0.1, eta=1.5, epochs=1,
+             batch_size=50, cohort="selected", device="cuda")
+    n = len(FL17_POLICIES) * c["n_rounds"]
+    fl_expect = {"bandit_round": n, "fedavg_combine": n}
+    saved = (torch.backends.cudnn.allow_tf32,
+             torch.backends.cuda.matmul.allow_tf32,
+             torch.backends.cudnn.deterministic,
+             torch.backends.cudnn.benchmark)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    try:
+        c["task"] = fl.make_cnn_task("paper-baseline", 100, cfg=cfg,
+                                     n_train=50_000, n_test=10_000,
+                                     batch_size=50, device="cuda")
+        refs = devices_references(a, b, c, fl_expect)
+        with process_group() as group:
+            devices_sweeps(results, refs, a, b, c, fl_expect)
+            del c["task"], refs
+            (torch.backends.cudnn.allow_tf32,
+             torch.backends.cuda.matmul.allow_tf32,
+             torch.backends.cudnn.deterministic,
+             torch.backends.cudnn.benchmark) = saved
+            devices_cohorts(results, group)
+    finally:
+        (torch.backends.cudnn.allow_tf32,
+         torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.deterministic,
+         torch.backends.cudnn.benchmark) = saved
+    log(f"[17] phase time {time.perf_counter() - t0:.1f} s; "
+        f"{card_name_and_power()}")
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: CUDA is not available; this script runs on "
@@ -3175,13 +3543,14 @@ def main() -> None:
     phase_async(results)
     phase_train(results)
     phase_families(results)
+    phase_devices(results)
     log(f"[done] {time.perf_counter() - t0:.1f} s")
     log(card_name_and_power())          # again, beside the results
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
             "device_ms")
     extra = ("shapes", "split_device_ms", "async_launches", "train_launches",
-             "fl_train_launches", "family_launches")
+             "fl_train_launches", "family_launches", "devices_launches")
     print(json.dumps({"kernels": [
         {**{k: r[k] for k in keys}, **{k: r[k] for k in extra if k in r}}
         for r in results.values()]}))

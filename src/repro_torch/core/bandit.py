@@ -663,25 +663,29 @@ def make_sampled_round_fn(policy: str, s_round: int, *,
 
 def make_segmented_round_fn(policy: str, s_round: int, *, n_shards: int,
                             fluctuate: bool = True, fault=None,
-                            deadline: float | None = None):
+                            deadline: float | None = None, group=None):
     """The client-sharded twin of :func:`make_sampled_round_fn`: one round
-    on a bandit state split into ``n_shards`` = P contiguous client blocks
-    (shard p owns clients [p*K/P, (p+1)*K/P); distributed/sharding.py):
+    on a bandit state split into P contiguous client blocks (shard p owns
+    clients [p*K/P, (p+1)*K/P); distributed/sharding.py):
 
         round_fn(state, cand_idx, u2, rand, theta_mu, gamma_mu, n_samples,
                  eta, model_bits, hyper, fault_u=None)
             -> (state, sel [G, S], round_time [G][, flags [G, S]])
 
-    ``state``: the sharded [G*P, K/P] state (``sharding.shard_state``);
-    ``cand_idx``: [G, C] sorted global candidates, the same for every
-    shard; ``theta_mu``/``gamma_mu``: [G, P, K/P] mean blocks;
-    ``n_samples``: [P, K/P]; ``u2``/``rand``/``eta``/``fault_u`` as in
+    ``n_shards``: P; ``group``: the ``torch.distributed`` process group
+    whose R ranks hold P/R blocks each (None: this process holds all P);
+    rank r holds blocks [r*P/R, (r+1)*P/R).  ``state``: this process's sharded
+    [G*P/R, K/P] state (``sharding.shard_state``); ``cand_idx``: [G, C]
+    sorted global candidates, the same for every shard;
+    ``theta_mu``/``gamma_mu``: [G, P/R, K/P] mean blocks; ``n_samples``:
+    [P/R, K/P]; ``u2``/``rand``/``eta``/``fault_u`` as in
     :func:`make_sampled_round_fn` (``rand`` the flat [G, K] stream).  The
-    JAX package runs one shard per device; here the P shards are a leading
-    axis of tensors on one device, crossing shards through
-    ``sharding.sum_shards`` (``psum``) and ``sharding.gather_shards``
-    (``all_gather``).  Selections, round times and state equal the flat
-    round's bitwise.
+    JAX package runs one shard per device; here a process's blocks are a
+    leading axis of its tensors, crossing shards through
+    ``sharding.sum_shards`` (``psum``: the local sum, then ``all_reduce``)
+    and ``sharding.gather_shards`` (``all_gather``).  Selections, round
+    times and state equal the flat round's bitwise, on any number of
+    ranks.
 
     Each shard gathers the candidates it owns; the shard sum re-assembles
     the exact [C] slice (the owner's value plus zeros), on which the
@@ -702,20 +706,22 @@ def make_segmented_round_fn(policy: str, s_round: int, *, n_shards: int,
     decay = policy_decay(policy)
     fault = resolve_fault(fault, deadline)
     kind = policy_kind(policy)
-    p = int(n_shards)
+    sg = sharding.place(int(n_shards), group)
+    p, grp = sg.per_rank, sg.group
 
     def round_fn(state, cand_idx, u2, rand, theta_mu, gamma_mu, n_samples,
                  eta, model_bits, hyper, fault_u=None):
         g, _, k_local = theta_mu.shape
-        k = k_local * p
-        off = torch.arange(p, device=cand_idx.device).view(1, p, 1) * k_local
+        k = k_local * sg.n_shards
+        off = (torch.arange(sg.first, sg.first + p, device=cand_idx.device)
+               .view(1, p, 1) * k_local)
         cvalid = cand_idx < k                            # [G, C]
         loc = cand_idx.long()[:, None, :] - off          # [G, P, C]
         in_l = cvalid[:, None, :] & (loc >= 0) & (loc < k_local)
         safe_l = torch.where(in_l, loc, 0)
 
         def assemble(x):                                 # [G, P, C] -> [G, C]
-            return sharding.sum_shards(torch.where(in_l, x, 0), 1)
+            return sharding.sum_shards(torch.where(in_l, x, 0), 1, grp)
 
         def local(x):                                    # [G, P, K/P] at C
             return x.expand(g, p, k_local).gather(2, safe_l)
@@ -752,9 +758,9 @@ def make_segmented_round_fn(policy: str, s_round: int, *, n_shards: int,
                 hyper)
             score = torch.where(in_l, a.view(g, p, -1), NEG_INF)
             lvals, lslots = ops.local_topk(score, in_l, s_round)
-            slots = segmented_topk_ref(sharding.gather_shards(lvals),
-                                       sharding.gather_shards(lslots),
-                                       s_round)
+            slots = segmented_topk_ref(
+                sharding.gather_shards(lvals, 1, grp),
+                sharding.gather_shards(lslots, 1, grp), s_round)
 
         ok = slots >= 0
         safe_slot = torch.where(ok, slots, 0).long()

@@ -32,9 +32,11 @@ FedBuff twin ``_async_fl_segment`` -> :func:`async_fl_segment`,
 ``async_accuracy_run``.  The clients' epoch orders are an input (``order``
 [.., E, cap], positions into each client's shard), drawn by the sweep from
 its ``"perm"`` stream (:func:`draw_orders`): the tests hand both packages
-the same orders.  Not ported yet: the host reference loop (ROADMAP Queue
-1, "The sweep and FL entry points that still raise"), multi-device sweeps
-("Several devices") and chunked sweeps.
+the same orders.  ``accuracy_sweep`` spreads its grid or its clients'
+bandit state over the ranks of a ``torch.distributed`` process group
+(``devices``, ``shard``; distributed/sharding.py).  Not ported yet: the
+host reference loop (ROADMAP Queue 1, "The sweep and FL entry points that
+still raise").
 """
 
 from __future__ import annotations
@@ -51,6 +53,7 @@ from repro_torch.core import bandit
 from repro_torch.data.partition import (dirichlet_partition, iid_partition,
                                         pad_partitions)
 from repro_torch.data.synthetic import make_synthetic_cifar
+from repro_torch.distributed import sharding
 from repro_torch.fl import metrics
 from repro_torch.fl.aggregation import GUARD_MAX_NORM
 from repro_torch.kernels import ops
@@ -348,11 +351,12 @@ def run_fl_rounds(task: FlTask, eta: torch.Tensor,
                   model_bits: float, epochs: int, batch_size: int,
                   cohort: str, cfg: cnn.CnnConfig, fluctuate: bool = True,
                   fast: bool = False, fused: bool = True,
-                  deadline: float | None = None) -> dict:
+                  deadline: float | None = None, shards=None) -> dict:
     """One learning-coupled round per element of ``draws`` — (RoundDraws,
     [G, K, E, cap] orders) pairs — for the [G] grid of ``eta``: the bandit
     round (``sim.engine.RoundRunner``; ``fused=False`` the unfused mask
-    pipeline), local training, the combine and the test accuracy.
+    pipeline; ``shards`` its client-sharded segmented round), local
+    training, the combine and the test accuracy.
 
     Returns a dict of ``round_times`` [G, R], ``accuracy`` [G, R],
     ``selected`` [G, R, S], ``flags`` [G, R, S] (None without a deadline)
@@ -361,7 +365,8 @@ def run_fl_rounds(task: FlTask, eta: torch.Tensor,
     runner = sim.RoundRunner(task.env, eta, policy=policy, scen=scen,
                              s_round=s_round, hyper=hyper,
                              model_bits=model_bits, fluctuate=fluctuate,
-                             fast=fast, fused=fused, deadline=deadline)
+                             fast=fast, fused=fused, deadline=deadline,
+                             shards=shards)
     spec = FlatSpec.of_tree(task.params0)
     params = flatten(task.params0, spec).expand(eta.shape[0], -1).contiguous()
     client_update = make_client_update(cfg, epochs=epochs,
@@ -532,24 +537,30 @@ def accuracy_sweep(scenario: Scenario | str = "paper-baseline",
     raises on the other device (None follows the device).  ``fast_perm``
     is moot here: the epoch orders are an input drawn by the sweep
     (:func:`draw_orders`), not a permutation chosen in the client update;
-    it is accepted for the JAX package's signature.  ``devices``,
-    ``shard="clients"`` and ``chunk_rounds`` are not ported yet and raise.
+    it is accepted for the JAX package's signature.
+
+    ``devices``, ``shard`` and ``chunk_rounds`` follow ``sim.engine.sweep``:
+    P shards over the R ranks of the default process group, P/R each, every
+    rank returning the whole result.  ``shard="grid"`` pads the seed axis
+    to a multiple of R and runs each rank's seeds; selections and round
+    times equal the flat sweep's bitwise, while the models and accuracy
+    agree within the rounding of the vmapped convolutions, which depends on
+    how many client models one call trains (on the CPU 2.4e-7 in a weight
+    between 24 and 12 models a call).  ``shard="clients"`` splits the
+    clients' bandit state and per-client means into P blocks and runs the
+    segmented round on the streamed fused path when P divides K (else the
+    flat round on every rank); every rank trains the round's whole cohort
+    in one call and combines it (one ``fedavg_combine`` launch a round),
+    so the results equal the flat sweep's bitwise.  With no group and no P
+    it is the flat sweep, as in the JAX package.  ``chunk_rounds`` must
+    divide ``n_rounds``; the draws are made a round at a time whatever it
+    is, and the results are the unchunked ones bitwise.
     """
     del fast_perm                       # moot: the orders are an input
-    if devices not in (None, 0, 1):
-        raise NotImplementedError("devices: multi-device accuracy sweeps are "
-                                  "not ported yet (ROADMAP Queue 1, "
-                                  "\"Several devices\")")
-    if shard != "grid":
-        raise NotImplementedError("shard='clients': the client-sharded "
-                                  "accuracy sweep is not ported yet (ROADMAP "
-                                  "Queue 1, \"The sweep and FL entry points "
-                                  "that still raise\")")
-    if chunk_rounds is not None:
-        raise NotImplementedError("chunk_rounds: the port draws every round "
-                                  "inside its loop; chunked presampling is "
-                                  "not ported (ROADMAP Queue 1, \"The sweep "
-                                  "and FL entry points that still raise\")")
+    if shard not in ("grid", "clients"):
+        raise ValueError(f"unknown shard mode {shard!r}")
+    sg = sharding.resolve_group(devices)
+    sim.check_chunk_rounds(n_rounds, chunk_rounds)
     device = sim.resolve_device(device)
     # the kernels run on CUDA tensors and their plain versions on CPU ones
     if use_kernel is not None and bool(use_kernel) != (device.type == "cuda"):
@@ -585,27 +596,43 @@ def accuracy_sweep(scenario: Scenario | str = "paper-baseline",
     n_req = math.ceil(n_clients * frac_request)
     fast = sim.resolve_fast_sampling(fast_sampling, n_clients)
     cap = task.part_idx.shape[1]
-    g_eta = torch.full((len(seeds),), float(eta), device=device)
+    n_seeds = len(seeds)
+    grid = sg if shard == "grid" else None
+    shards = (sg if sg is not None and shard == "clients" and fast and fused
+              and sharding.even_shards(n_clients, sg.n_shards) is not None
+              else None)
+    rows = (None if grid is None
+            else sharding.grid_rows(n_seeds, grid, device))
+    g_eta = torch.full((n_seeds if rows is None else rows.shape[0],),
+                       float(eta), device=device)
+
+    def draw(gens, name):
+        d = sim.draw_round_inputs(
+            gens, n_seeds=n_seeds, n_etas=1, k=n_clients, n_req=n_req,
+            s_round=s_round, fast=fast, fluctuate=fluctuate, policy=name,
+            scen=scen, fault=fault)
+        order = draw_orders(gens["perm"], n_seeds, task.part_count, epochs,
+                            cap)
+        if rows is None:
+            return d, order
+        return sim.take_rows(d, rows), order.index_select(0, rows)
 
     outs = []
     for name, hyper in zip(pol_names, hypers):
         gens = sim.make_generators(seeds, device)
-        draws = ((sim.draw_round_inputs(
-                      gens, n_seeds=len(seeds), n_etas=1, k=n_clients,
-                      n_req=n_req, s_round=s_round, fast=fast,
-                      fluctuate=fluctuate, policy=name, scen=scen,
-                      fault=fault),
-                  draw_orders(gens["perm"], len(seeds), task.part_count,
-                              epochs, cap))
-                 for _ in range(n_rounds))
+        draws = (draw(gens, name) for _ in range(n_rounds))
         outs.append(run_fl_rounds(
             task, g_eta, draws, policy=name, scen=scen, s_round=s_round,
             hyper=hyper, model_bits=float(model_bits), epochs=epochs,
             batch_size=batch_size, cohort=cohort, cfg=cfg,
-            fluctuate=fluctuate, fast=fast, fused=fused, deadline=deadline))
+            fluctuate=fluctuate, fast=fast, fused=fused, deadline=deadline,
+            shards=shards))
 
     def stack(key):
-        return torch.stack([o[key] for o in outs]).cpu().numpy()
+        x = torch.stack([o[key] for o in outs], 1)     # [G', P, R, ...]
+        if grid is not None:
+            x = sharding.gather_shards(x, 0, grid.group)[:n_seeds]
+        return np.ascontiguousarray(x.transpose(0, 1).cpu().numpy())
     return FlSweepResult(
         policies=tuple(pol_names), hypers=tuple(hypers), seeds=seeds,
         eta=float(eta), round_times=stack("round_times"),

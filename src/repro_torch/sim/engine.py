@@ -1,6 +1,6 @@
-"""The protocol sweep on one device — the PyTorch port of
-``repro.sim.engine_jax``: flat, client-sharded (segmented) and
-hierarchical (cell) selection.
+"""The protocol sweep — the PyTorch port of ``repro.sim.engine_jax``:
+flat, client-sharded (segmented) and hierarchical (cell) selection, on one
+card or over the ranks of a ``torch.distributed`` process group.
 
 ``sweep`` runs the paper's experiment: a grid of policies x eta x seeds
 through R protocol rounds, each round doing Resource Request -> Eq. (8)
@@ -36,7 +36,9 @@ CUDA device every fused round is one launch of the hand-written kernel
 Two scale-out modes sit on the streamed path.  ``shard="clients"`` splits
 the bandit state into P client blocks held as a leading [P] axis and runs
 the segmented round, whose score policies rank each block's candidates with
-the hand-written local top-S kernel (kernels/topk_slots.py).
+the hand-written local top-S kernel (kernels/topk_slots.py); the blocks may
+sit on several ranks (distributed/sharding.py), as may the grid points
+(``shard="grid"``).
 ``hierarchy="cells"`` selects cells first and polls candidates only inside
 them, then runs the ordinary fused round.
 """
@@ -216,16 +218,21 @@ def scenario_thr_mult(scen: Scenario, cell_id: torch.Tensor,
 
 
 def churn_step(u: torch.Tensor, mean_theta: torch.Tensor,
-               mean_gamma: torch.Tensor, churn_prob: float):
+               mean_gamma: torch.Tensor, churn_prob: float,
+               k: int | None = None, first: int = 0):
     """Maybe replace one client per grid point with a fresh device (new
     mean resources; the server's statistics go stale).  ``u``: [G, 4]
-    uniforms (whether, which client, its distance, its capability)."""
-    k = mean_theta.shape[1]
+    uniforms (whether, which client, its distance, its capability).  The
+    means may be a block of the K clients (``k``, default their width),
+    global clients [first, first + width)."""
+    width = mean_theta.shape[1]
+    k = width if k is None else k
     do = u[:, 0] < churn_prob
     j = (u[:, 1] * k).long().clamp_max(k - 1)
     r = (network.CELL_RADIUS_M * torch.sqrt(u[:, 2])).clamp_min(
         network.MIN_DIST_M)
-    hit = do[:, None] & (torch.arange(k, device=u.device)[None] == j[:, None])
+    hit = do[:, None] & (torch.arange(first, first + width, device=u.device)[
+        None] == j[:, None])
     new_gamma = CAP_LOW + u[:, 3] * (CAP_HIGH - CAP_LOW)
     return (torch.where(hit, throughput_bps(r)[:, None], mean_theta),
             torch.where(hit, new_gamma[:, None], mean_gamma))
@@ -319,6 +326,22 @@ def draw_round_inputs(gens: dict[str, torch.Generator], *, n_seeds: int,
         for f in dataclasses.fields(d)})
 
 
+def take_rows(d: RoundDraws, rows: torch.Tensor) -> RoundDraws:
+    """The draws of grid rows ``rows`` (indices into ``d``'s leading
+    axis)."""
+    return RoundDraws(**{
+        f.name: None if (x := getattr(d, f.name)) is None
+        else x.index_select(0, rows) for f in dataclasses.fields(d)})
+
+
+def check_chunk_rounds(n_rounds: int, chunk_rounds: int | None) -> None:
+    """``chunk_rounds`` must divide ``n_rounds``, as in the JAX package."""
+    if chunk_rounds is not None and (int(chunk_rounds) < 1
+                                     or n_rounds % int(chunk_rounds)):
+        raise ValueError(f"n_rounds={n_rounds} not divisible by "
+                         f"chunk_rounds={chunk_rounds}")
+
+
 def _uniforms(d: RoundDraws):
     """The legacy path's (theta, gamma) uniforms of a round, [G, K] each."""
     return (None, None) if d.u_time is None else (d.u_time[:, 0],
@@ -335,27 +358,38 @@ class RoundRunner:
     uniforms.  ``deadline`` switches on the failure layer, the scenario's
     FaultModel giving the fault probabilities.
 
-    ``shards`` = P (streamed and fused only) runs the client-sharded
-    segmented round (``bandit.make_segmented_round_fn``) on a state split
-    into P client blocks.  ``cells`` = (s_cells, n_req_cell) (streamed
-    only) runs the hierarchical rounds: each round first selects
-    ``s_cells`` cells of the scenario's ``congestion_cells`` from the cell
-    aggregates, polls ``n_req_cell`` candidates in each from the draws'
-    ``cell_u`` and afterwards folds the observed T_inc into the aggregates.
+    ``shards`` = P or a ``sharding.ShardGroup`` (streamed and fused only)
+    runs the client-sharded segmented round
+    (``bandit.make_segmented_round_fn``) on a state split into P client
+    blocks; the runner holds only its process's P/R blocks (state, means
+    and the environment's per-client arrays), global clients from
+    ``first`` on.  ``cells`` = (s_cells, n_req_cell) (streamed only) runs
+    the hierarchical rounds: each round first selects ``s_cells`` cells of
+    the scenario's ``congestion_cells`` from the cell aggregates, polls
+    ``n_req_cell`` candidates in each from the draws' ``cell_u`` and
+    afterwards folds the observed T_inc into the aggregates.
     """
 
     def __init__(self, env: EnvArrays, eta: torch.Tensor, *, policy: str,
                  scen: Scenario, s_round: int, hyper: float,
                  model_bits: float, fluctuate: bool = True,
                  fast: bool = False, fused: bool = True,
-                 deadline: float | None = None, shards: int | None = None,
+                 deadline: float | None = None, shards=None,
                  cells: tuple[int, int] | None = None):
         g, k = eta.shape[0], env.mean_theta.shape[0]
+        self.k, self.first = k, 0
+        self.shards = None if not shards else sharding.as_group(shards)
+        if self.shards:
+            sg, kb = self.shards, k // self.shards.n_shards
+            self.first = sg.first * kb
+            end = self.first + sg.per_rank * kb
+            env = EnvArrays(**{f.name: getattr(env, f.name)[self.first:end]
+                               for f in dataclasses.fields(env)})
         self.env, self.eta, self.scen = env, eta, scen
         self.policy, self.s_round, self.hyper = policy, s_round, hyper
         self.model_bits, self.fluctuate = model_bits, fluctuate
         self.fast, self.fused, self.deadline = fast, fused, deadline
-        self.shards, self.cells = shards, cells
+        self.cells = cells
         if (shards or cells) and not fast:
             raise ValueError("client-sharded and hierarchical rounds run on "
                              "the streamed-sampling path (fast=True)")
@@ -363,15 +397,18 @@ class RoundRunner:
             raise ValueError("client-sharded rounds are fused rounds")
         self.fault = bandit.resolve_fault(scen.fault, deadline)
         self.decay = bandit.policy_decay(policy)
-        self.state = bandit.BanditState.create(g, k,
+        width = env.mean_theta.shape[0]
+        self.state = bandit.BanditState.create(g, width,
                                                device=env.mean_theta.device)
-        self.m_theta = env.mean_theta.expand(g, k).contiguous()
-        self.m_gamma = env.mean_gamma.expand(g, k).contiguous()
+        self.m_theta = env.mean_theta.expand(g, width).contiguous()
+        self.m_gamma = env.mean_gamma.expand(g, width).contiguous()
         if shards:
-            self.state = sharding.shard_state(self.state, shards)
+            self.state = sharding.shard_state(self.state,
+                                              self.shards.per_rank)
             self._fn = bandit.make_segmented_round_fn(
-                policy, s_round, n_shards=shards, fluctuate=fluctuate,
-                fault=self.fault, deadline=deadline)
+                policy, s_round, n_shards=self.shards.n_shards,
+                fluctuate=fluctuate, fault=self.fault, deadline=deadline,
+                group=self.shards.group)
         elif fused and fast:
             self._fn = bandit.make_sampled_round_fn(
                 policy, s_round, fluctuate=fluctuate, fault=self.fault,
@@ -397,15 +434,16 @@ class RoundRunner:
         return self._diurnal
 
     def flat_state(self) -> bandit.BanditState:
-        """The bandit state in the flat [G, K] layout."""
+        """The bandit state in the flat [G, K] layout; with client shards
+        over ranks, this process's clients only ([G, K*(P/R)/P])."""
         if self.shards:
-            return sharding.unshard_state(self.state, self.shards)
+            return sharding.unshard_state(self.state, self.shards.per_rank)
         return self.state
 
     def step(self, rnd: int, d: RoundDraws):
         """Round ``rnd`` (1-based) on the draws ``d``.  Returns ``(sel [G, S],
         round_time [G], flags [G, S] or None)``."""
-        env, eta, k = self.env, self.eta, self.m_theta.shape[1]
+        env, eta, k = self.env, self.eta, self.k
         if self.cells:
             s_cells, n_req_cell = self.cells
             cells_sel = bandit.select_cells(self.cell_n, self.cell_tinc,
@@ -418,7 +456,7 @@ class RoundRunner:
         mu_t = self.m_theta if mult is None else self.m_theta * mult
         m_gamma, bits = self.m_gamma, self.model_bits
         if self.shards:
-            p = self.shards
+            p = self.shards.per_rank
             out = self._fn(self.state, d.cand, d.u_time, d.rand,
                            sharding.shard_leading(mu_t, p, 1),
                            sharding.shard_leading(m_gamma, p, 1),
@@ -455,7 +493,8 @@ class RoundRunner:
                 self.state.sum_tinc, env.cell_id, self.n_cells)
         if self.scen.churn_prob > 0.0:
             self.m_theta, self.m_gamma = churn_step(
-                d.churn, self.m_theta, m_gamma, self.scen.churn_prob)
+                d.churn, self.m_theta, m_gamma, self.scen.churn_prob,
+                k=self.k, first=self.first)
         return out[1], out[2], (out[3] if self.deadline is not None
                                 else None)
 
@@ -465,14 +504,13 @@ def run_rounds(env: EnvArrays, eta: torch.Tensor,
                s_round: int, hyper: float, model_bits: float,
                fluctuate: bool = True, fast: bool = False,
                fused: bool = True, deadline: float | None = None,
-               shards: int | None = None,
-               cells: tuple[int, int] | None = None):
+               shards=None, cells: tuple[int, int] | None = None):
     """Run one round per element of ``draws`` for the [G] grid of ``eta``
     (arguments as :class:`RoundRunner`'s).
 
     Returns ``(round_times [G, R], flags [G, R, S] or None, state)``;
     ``flags`` exist when the failure layer is on (``deadline`` set); the
-    state is in the flat [G, K] layout.
+    state is in the flat [G, K] layout (``RoundRunner.flat_state``).
     """
     runner = RoundRunner(env, eta, policy=policy, scen=scen, s_round=s_round,
                          hyper=hyper, model_bits=model_bits,
@@ -598,16 +636,33 @@ def sweep(scenario: Scenario | str = "paper-baseline",
     failure-aware layer and the result's ``flags``.  Every grid point of one
     seed sees the same random draws, whatever its policy or eta.
 
-    ``shard="clients"`` with ``devices`` = P > 1 splits the K clients'
-    bandit state into P contiguous blocks and runs the client-sharded
-    segmented rounds (``bandit.make_segmented_round_fn``) when P divides K
-    and the round is streamed and fused; otherwise it runs the flat path,
-    which gives the same results.  In this port the P shards are P blocks
-    of one device's memory (a leading [P] axis); the draws are the flat
-    path's, so the results equal the flat sweep's bitwise.  On one card
-    this path is slower than the flat one at every K measured (PERF.md);
-    it is there for parity with the JAX package and as the layout that
-    placing the blocks on several cards will use (ROADMAP).
+    ``devices`` asks for P shards: None or 1 is the one-shard path, an int
+    that many shards, ``"all"`` the world size.  The shards sit on the R
+    ranks of the default ``torch.distributed`` process group, P/R each (R
+    must divide P; with no group R = 1, one process holding every shard),
+    and every rank returns the whole result (``distributed/sharding.py``).
+
+    ``shard="grid"`` edge-pads the flattened (eta x seed) axis to a
+    multiple of R, runs each rank's rows through the flat path (the round
+    kernels on the card) and all-gathers the round times: the result equals
+    the flat sweep's bitwise.  Each rank draws every seed's random numbers
+    and keeps its rows'.
+
+    ``shard="clients"`` splits the K clients' bandit state into P
+    contiguous blocks and runs the client-sharded segmented rounds
+    (``bandit.make_segmented_round_fn``) when P divides K and the round is
+    streamed and fused; otherwise it runs the flat path on every rank,
+    which gives the same results.  A rank holds its P/R blocks as a
+    leading axis of its tensors and crosses shards by ``all_reduce`` and
+    ``all_gather``; the draws are the flat path's, so the results equal the
+    flat sweep's bitwise.  On one card this path is slower than the flat
+    one at every K measured (PERF.md).
+
+    ``chunk_rounds`` = c must divide ``n_rounds`` (ValueError otherwise, as
+    in the JAX package), where it caps the presampled draws at c rounds.
+    The port draws every round inside its loop, so its draws take O(K) per
+    grid point whatever c is, and the results are the unchunked ones
+    bitwise.
 
     ``hierarchy="cells"`` runs the two-level selection on the streamed
     path: each round scores the scenario's ``congestion_cells`` cells by a
@@ -617,33 +672,13 @@ def sweep(scenario: Scenario | str = "paper-baseline",
     inside those.  A scenario with at most one cell runs the flat path.  It
     does not compose with ``shard="clients"`` or ``fast_sampling=False``
     (ValueError).
-
-    Not ported: ``devices`` > 1 with ``shard="grid"`` and the placement of
-    blocks on several cards (ROADMAP Queue 1, "Several devices"), and
-    ``chunk_rounds`` (Queue 1, "The sweep and FL entry points that still
-    raise"); both raise NotImplementedError.
     """
     if shard not in ("grid", "clients"):
         raise ValueError(f"unknown shard mode {shard!r}")
     if hierarchy not in ("flat", "cells"):
         raise ValueError(f"unknown hierarchy mode {hierarchy!r}")
-    if devices in (None, 0, 1):
-        n_shards = None
-    elif isinstance(devices, int) and devices > 1:
-        n_shards = devices
-    else:
-        raise ValueError(f"devices must be None or a number of shards, got "
-                         f"{devices!r}")
-    if n_shards and shard == "grid":
-        raise NotImplementedError(
-            "devices > 1 with shard='grid': placing grid points on several "
-            "cards is not ported yet (ROADMAP Queue 1, \"Several devices\"); "
-            "shard='clients' runs P client blocks on one card")
-    if chunk_rounds is not None:
-        raise NotImplementedError("chunk_rounds: the port draws every round "
-                                  "inside its loop; chunked presampling is "
-                                  "not ported (ROADMAP Queue 1, \"The sweep "
-                                  "and FL entry points that still raise\")")
+    sg = sharding.resolve_group(devices)
+    check_chunk_rounds(n_rounds, chunk_rounds)
     device = resolve_device(device)
     scenario = get_scenario(scenario) if isinstance(scenario, str) else scenario
     if s_round > n_clients:
@@ -683,24 +718,33 @@ def sweep(scenario: Scenario | str = "paper-baseline",
             n_req = s_cells * n_req_cell
     fast = cells is not None or resolve_fast_sampling(fast_sampling,
                                                       n_clients)
-    shards = (n_shards if shard == "clients" and fast and fused
+    shards = (sg if sg is not None and shard == "clients" and fast and fused
               and cells is None
-              and sharding.even_shards(n_clients, n_shards) is not None
+              and sharding.even_shards(n_clients, sg.n_shards) is not None
               else None)
+    grid = sg if shard == "grid" else None
 
     env = scenario.build_env(n_clients, np.random.default_rng(env_seed))
     env_arrays = EnvArrays.from_scenario(scenario, env, device)
+    n_grid = len(etas) * len(seeds)
     g_eta = torch.tensor(etas, dtype=torch.float32,
                          device=device).repeat_interleave(len(seeds))
+    if grid is not None:        # grid point g = eta index * n_seeds + seed
+        rows = sharding.grid_rows(n_grid, grid, device)
+        g_eta, seed_rows = g_eta[rows], rows % len(seeds)
+
+    def draw(name):
+        d = draw_round_inputs(
+            gens, n_seeds=len(seeds),
+            n_etas=len(etas) if grid is None else 1, k=n_clients,
+            n_req=n_req, s_round=s_round, fast=fast, fluctuate=fluctuate,
+            policy=name, scen=scenario, fault=fault, cells=draw_cells)
+        return d if grid is None else take_rows(d, seed_rows)
 
     rts_all, flags_all = [], []
     for name, hyper in zip(pol_names, hypers):
         gens = make_generators(seeds, device)
-        draws = (draw_round_inputs(
-            gens, n_seeds=len(seeds), n_etas=len(etas), k=n_clients,
-            n_req=n_req, s_round=s_round, fast=fast, fluctuate=fluctuate,
-            policy=name, scen=scenario, fault=fault, cells=draw_cells)
-            for _ in range(n_rounds))
+        draws = (draw(name) for _ in range(n_rounds))
         rts, flags, _ = run_rounds(
             env_arrays, g_eta, draws, policy=name, scen=scenario,
             s_round=s_round, hyper=hyper, model_bits=float(model_bits),
@@ -708,9 +752,19 @@ def sweep(scenario: Scenario | str = "paper-baseline",
             shards=shards, cells=cells)
         rts_all.append(rts)
         flags_all.append(flags)
-    shape = (len(pol_names), len(etas), len(seeds), n_rounds)
-    rts = torch.stack(rts_all).cpu().numpy().reshape(shape)
-    flags = (None if deadline is None else
-             torch.stack(flags_all).cpu().numpy().reshape(shape + (s_round,)))
+    rts = torch.stack(rts_all, 1)                       # [G', P, R]
+    flags = None if deadline is None else torch.stack(flags_all, 1)
+    if grid is not None:
+        rts = sharding.gather_shards(rts, 0, grid.group)[:n_grid]
+        flags = (None if flags is None
+                 else sharding.gather_shards(flags, 0, grid.group)[:n_grid])
+    shape = (len(etas), len(seeds), len(pol_names), n_rounds)
+    rts = rts.cpu().numpy().reshape(shape).transpose(2, 0, 1, 3)
+    if flags is not None:
+        flags = flags.cpu().numpy().reshape(shape + (s_round,)).transpose(
+            2, 0, 1, 3, 4)
     return SweepResult(policies=tuple(pol_names), hypers=tuple(hypers),
-                       etas=etas, seeds=seeds, round_times=rts, flags=flags)
+                       etas=etas, seeds=seeds,
+                       round_times=np.ascontiguousarray(rts),
+                       flags=None if flags is None
+                       else np.ascontiguousarray(flags))

@@ -1,0 +1,204 @@
+"""Run the port on several ``torch.distributed`` ranks from a test, on the
+CPU.
+
+:func:`run_ranks` spawns R processes with ``torch.multiprocessing.spawn``,
+joins them in a gloo process group through a ``file://`` rendezvous in a
+directory the caller owns (no TCP port, no ``MASTER_ADDR``/``MASTER_PORT``),
+calls one function of this module on every rank, and returns every rank's
+result to the parent.  A rank runs on one torch thread and destroys its
+process group in a ``finally``; the run has a timeout, after which the
+ranks are killed.
+
+This module imports only ``torch``, ``numpy`` and ``repro_torch``: a
+spawned rank imports it to find its function, and must not import JAX.
+The rank functions take picklable arguments (numpy arrays, dicts, tuples)
+and return numpy arrays.
+"""
+
+from __future__ import annotations
+
+import itertools
+import time
+from pathlib import Path
+
+import numpy as np
+import torch
+import torch.distributed as dist
+import torch.multiprocessing as mp
+
+_RUNS = itertools.count()
+
+
+def run_ranks(fn, world: int, workdir: Path, *args, timeout: float = 300.0):
+    """``[fn(rank, world, *args) for rank in range(world)]``, each call on
+    its own gloo rank; ``fn`` is a function of this module."""
+    run = Path(workdir) / f"ranks-{world}-{next(_RUNS)}"
+    run.mkdir(parents=True)
+    ctx = mp.spawn(_rank_main, args=(world, str(run), fn, args),
+                   nprocs=world, join=False)
+    deadline = time.monotonic() + timeout
+    while not ctx.join(timeout=1.0):
+        if time.monotonic() > deadline:
+            for p in ctx.processes:
+                p.kill()
+            for p in ctx.processes:
+                p.join()
+            raise TimeoutError(f"{world} ranks of {fn.__name__} ran past "
+                               f"{timeout} s")
+    return [torch.load(run / f"rank{r}.pt", weights_only=False)
+            for r in range(world)]
+
+
+def _rank_main(rank: int, world: int, run: str, fn, args) -> None:
+    torch.set_num_threads(1)
+    dist.init_process_group("gloo", init_method=f"file://{run}/store",
+                            world_size=world, rank=rank)
+    try:
+        out = fn(rank, world, *args)
+        dist.barrier()
+    finally:
+        dist.destroy_process_group()
+    torch.save(out, Path(run) / f"rank{rank}.pt")
+
+
+# ---------------------------------------------------------------------------
+# rank functions
+# ---------------------------------------------------------------------------
+
+def sweeps(rank: int, world: int, cases: dict) -> dict:
+    """``sim.engine.sweep(**kw)`` for each named case: round times and
+    flags."""
+    from repro_torch.sim import engine
+    out = {}
+    for name, kw in cases.items():
+        res = engine.sweep(device="cpu", **kw)
+        out[name] = (res.round_times, res.flags)
+    return out
+
+
+def replayed_sweeps(rank: int, world: int, cases: dict,
+                    tables: dict) -> dict:
+    """:func:`sweeps` with each case's random inputs replayed from
+    ``tables[name]`` instead of drawn: ``sim.engine.draw_round_inputs`` is
+    swapped, for the duration of the call, for one that returns round r's
+    arrays ([R, n_seeds, ...] each, absent streams left out), repeated over
+    the eta axis as the real one does.  The sweep runs as it is otherwise:
+    its layout, shards and collectives."""
+    from repro_torch.sim import engine
+    real = engine.draw_round_inputs
+    out = {}
+    try:
+        for name, kw in cases.items():
+            table = tables[name]
+            n_rounds = kw["n_rounds"]
+            calls = itertools.count()
+
+            def replay(gens, *, n_etas, policy, fault, **_):
+                r = next(calls) % n_rounds
+
+                def get(key, when=True):
+                    x = table.get(key)
+                    if x is None or not when:
+                        return None
+                    x = torch.from_numpy(np.ascontiguousarray(x[r]))
+                    return x.repeat(n_etas, *([1] * (x.dim() - 1)))
+                return engine.RoundDraws(
+                    cand=get("cand"), u_time=get("u_time"),
+                    rand=get("rand", policy == "random"),
+                    fault_u=get("fault_u", fault is not None),
+                    cong=get("cong"), churn=get("churn"))
+            engine.draw_round_inputs = replay
+            res = engine.sweep(device="cpu", **kw)
+            out[name] = (res.round_times, res.flags)
+    finally:
+        engine.draw_round_inputs = real
+    return out
+
+
+def refusals(rank: int, world: int, cases: dict) -> dict:
+    """The ValueError message of ``sim.engine.sweep(**kw)`` for each named
+    case (None if it did not raise)."""
+    from repro_torch.sim import engine
+    out = {}
+    for name, kw in cases.items():
+        try:
+            engine.sweep(device="cpu", **kw)
+            out[name] = None
+        except ValueError as e:
+            out[name] = str(e)
+    return out
+
+
+def accuracy_sweeps(rank: int, world: int, task_kw: dict, cfg_kw: dict,
+                    cases: dict) -> dict:
+    """``fl.engine.accuracy_sweep`` on a small CNN task for each named case:
+    selections, round times and accuracy."""
+    from repro_torch.fl import engine
+    from repro_torch.models import cnn
+    cfg = cnn.CnnConfig(**cfg_kw)
+    task = engine.make_cnn_task("paper-baseline", cfg=cfg, device="cpu",
+                                **task_kw)
+    out = {}
+    for name, kw in cases.items():
+        res = engine.accuracy_sweep(task=task, cfg=cfg, device="cpu", **kw)
+        out[name] = (res.selected, res.round_times, res.accuracy)
+    return out
+
+
+def _cohorts(tree: dict, rank: int, per: int) -> dict:
+    return {k: torch.as_tensor(v[rank * per:(rank + 1) * per])
+            for k, v in tree.items()}
+
+
+def cohort_combines(rank: int, world: int, stacked: dict, base: dict,
+                    weights: np.ndarray, ratio: float) -> dict:
+    """``fl_parallel.fedavg_across_cohorts`` of every compress mode on this
+    rank's cohorts of ``stacked`` (flat dicts of numpy arrays)."""
+    from repro_torch.distributed import fl_parallel
+    group = dist.group.WORLD if dist.is_initialized() else None
+    per = weights.shape[0] // world
+    mine = _cohorts(stacked, rank, per)
+    base_t = {k: torch.as_tensor(v) for k, v in base.items()}
+    w = torch.as_tensor(weights)
+    return {mode: {k: v.numpy() for k, v in fl_parallel.fedavg_across_cohorts(
+        mine, w, compress=mode, topk_ratio=ratio, base_params=base_t,
+        group=group).items()} for mode in fl_parallel.COMPRESS}
+
+
+def cohort_rounds(rank: int, world: int, params: dict, batches: dict,
+                  weights: np.ndarray, cfg_kw: dict, n_steps: int,
+                  lr: float, ratio: float) -> dict:
+    """One ``fl_parallel.make_fl_round`` of every compress mode on a small
+    CNN with SGD, this rank's cohorts of ``batches``: the new global model
+    and the mean loss."""
+    from repro_torch.distributed import fl_parallel
+    from repro_torch.models import cnn
+    from repro_torch.optim.sgd import OptimizerConfig
+    cfg = cnn.CnnConfig(**cfg_kw)
+    group = dist.group.WORLD if dist.is_initialized() else None
+    per = weights.shape[0] // world
+    mine = _cohorts(batches, rank, per)
+    p0 = {k: torch.as_tensor(v) for k, v in params.items()}
+    opt = OptimizerConfig(name="sgd", lr=lr, lr_decay=0.0).build()
+
+    def loss(p, b):
+        return cnn.loss_fn(p, b["x"], b["y"], cfg)
+    out = {}
+    for mode in fl_parallel.COMPRESS:
+        fl_round = fl_parallel.make_fl_round(loss, opt, n_steps,
+                                             compress=mode, topk_ratio=ratio,
+                                             group=group)
+        states = fl_parallel.init_cohort_states(
+            opt, fl_parallel.stack_for_cohorts(p0, per))
+        new, _, mean_loss = fl_round(p0, states, mine, torch.as_tensor(
+            weights))
+        out[mode] = ({k: v.numpy() for k, v in new.items()},
+                     float(mean_loss))
+    return out
+
+
+def cohort_checks(rank: int, world: int, combine: tuple, rounds: tuple
+                  ) -> dict:
+    """:func:`cohort_combines` and :func:`cohort_rounds` in one run."""
+    return {"combine": cohort_combines(rank, world, *combine),
+            "round": cohort_rounds(rank, world, *rounds)}

@@ -326,6 +326,11 @@ def test_flaky_sweep_fault_counts_partition(tasks):
 
 
 def test_entry_points_refuse(tasks):
+    """The sweep runs on the card unless asked for the CPU, takes a task or
+    task_kwargs but not both, refuses S > K, an unknown shard mode and a
+    ``chunk_rounds`` that does not divide ``n_rounds`` (``devices`` and
+    ``shard="clients"`` are accepted now: tests/test_torch_distributed.py
+    holds them to the flat sweep)."""
     _, tt = tasks
     if torch.cuda.is_available():
         assert sim.resolve_device(None).type == "cuda"
@@ -334,9 +339,10 @@ def test_entry_points_refuse(tasks):
             engine.accuracy_sweep(policies=("fedcs",), seeds=1, n_rounds=1)
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             engine.make_cnn_task(n_clients=4, n_train=10, n_test=10)
-    for kw in ({"devices": 2}, {"shard": "clients"}, {"chunk_rounds": 2}):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            _sweep(tt, seeds=1, n_rounds=1, **kw)
+    with pytest.raises(ValueError, match="not divisible by chunk_rounds=2"):
+        _sweep(tt, seeds=1, n_rounds=1, chunk_rounds=2)
+    with pytest.raises(ValueError, match="shard mode"):
+        _sweep(tt, seeds=1, n_rounds=1, shard="rows")
     with pytest.raises(ValueError, match="task_kwargs"):
         _sweep(tt, seeds=1, n_rounds=1, n_train=10)
     with pytest.raises(ValueError, match="exceeds"):

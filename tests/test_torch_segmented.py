@@ -309,13 +309,15 @@ def test_sharding_helpers():
 
 
 def test_sweep_refusals():
+    """An unknown shard mode raises; with no process group,
+    ``devices="all"`` is one shard, so ``shard="clients"`` gives the flat
+    sweep's result, as the JAX package does on one device."""
     kw = dict(n_rounds=2, seeds=1, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        engine.sweep(**kw, devices=2)
     with pytest.raises(ValueError, match="shard mode"):
         engine.sweep(**kw, shard="rows")
-    with pytest.raises(ValueError, match="devices"):
-        engine.sweep(**kw, devices="all", shard="clients")
+    one = engine.sweep(**kw, devices="all", shard="clients")
+    flat = engine.sweep(**kw)
+    np.testing.assert_array_equal(one.round_times, flat.round_times)
 
 
 # ---------------------------------------------------------------------------

@@ -284,10 +284,18 @@ def test_sweep_churn_scenario_runs():
 
 
 def test_entry_points_refuse_what_is_not_ported():
+    """What the sweep refuses: a ``chunk_rounds`` that does not divide
+    ``n_rounds`` (the JAX package's ValueError), a ``devices`` that is no
+    number of shards, a fault scenario without a deadline and an unknown
+    policy.  (``devices`` that do not split over the ranks of a process
+    group are refused in tests/test_torch_distributed.py.)"""
     kw = dict(n_rounds=2, seeds=1, device="cpu")
-    for bad in (dict(devices=2), dict(chunk_rounds=1)):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            engine.sweep(**kw, **bad)
+    with pytest.raises(ValueError, match="n_rounds=2 not divisible by "
+                                         "chunk_rounds=3"):
+        engine.sweep(**kw, chunk_rounds=3)
+    for bad in ("two", -1, 2.0, True):
+        with pytest.raises(ValueError, match="devices"):
+            engine.sweep(**kw, devices=bad)
     with pytest.raises(ValueError, match="deadline"):
         engine.sweep("flaky-clients", **kw)
     with pytest.raises(ValueError, match="unknown policy"):
