@@ -87,9 +87,12 @@ def build(sources, out_dir: Path):
                   f"WARPGROUP.ARRIVE {kern.count('WARPGROUP.ARRIVE')}, "
                   f"WARPGROUP.DEPBAR {kern.count('WARPGROUP.DEPBAR')}")
         cdll = ctypes.CDLL(str(lib))
+        # sources since the query offset take it after `causal` (passed 0)
+        offset = "int q_offset" in Path(src).read_text()
         if hasattr(cdll, "flash_attention_sm90_launch"):
             dtypes.add("bfloat16")
-            fns.append(plain_launcher(cdll.flash_attention_sm90_launch))
+            fns.append(plain_launcher(cdll.flash_attention_sm90_launch,
+                                      offset))
         elif hasattr(cdll, "flash_attention_tile_check"):
             dtypes.add("float32")
             for dh in cuda_flash.HEAD_DIMS:
@@ -99,28 +102,37 @@ def build(sources, out_dir: Path):
                       f"value (limit {TILE_CHECK_MAX_REL:g})")
                 if max(errs) > TILE_CHECK_MAX_REL:
                     sys.exit(f"v{i}: the one-tile check failed at dh {dh}")
-            fns.append(scratch_launcher(cdll.flash_attention_launch))
+            fns.append(scratch_launcher(cdll.flash_attention_launch, offset))
         else:
             dtypes.add("float32")
-            fns.append(plain_launcher(cdll.flash_attention_launch))
+            fns.append(plain_launcher(cdll.flash_attention_launch, offset))
     if len(dtypes) != 1:
         sys.exit("the sources mix bfloat16 and float32 kernels")
     return dtypes.pop(), fns
 
 
-def plain_launcher(fn):
-    fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 7
+def _entry(fn, n_ptr: int, offset: bool):
+    """``fn`` with its argument types; with ``offset`` it takes a query
+    offset after ``causal``, and the returned function passes 0 there."""
+    fn.argtypes = ([ctypes.c_void_p] * n_ptr + [ctypes.c_int] * (7 + offset)
                    + [ctypes.c_float, ctypes.c_void_p])
     fn.restype = ctypes.c_int
-    return fn
+    if not offset:
+        return fn
+
+    def call(*args):
+        return fn(*args[:-2], 0, *args[-2:])
+    return call
 
 
-def scratch_launcher(fn):
+def plain_launcher(fn, offset: bool):
+    return _entry(fn, 4, offset)
+
+
+def scratch_launcher(fn, offset: bool):
     """The 3xTF32 entry point, its scratch allocated per call as the
     wrapper does."""
-    fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 7
-                   + [ctypes.c_float, ctypes.c_void_p])
-    fn.restype = ctypes.c_int
+    fn = _entry(fn, 5, offset)
 
     def launch(q, k, v, out, b, sq, skv, kv, g, dh, *rest):
         scratch = torch.empty(cuda_flash.f32_scratch_shape(b, skv, kv, dh),

@@ -188,6 +188,24 @@ else.  Phases (every mismatch raises, so any failure exits non-zero):
      (COHORT_TOL), and a timed round with its launches (the bf16 attention
      kernel twice a layer a step, FedAvg once a round but under int8_psum).
      Rounds/s of (a) and (b), seconds a cohort round and peak memory.
+ 18. the LM stack over a device mesh: (a) the attention kernels at a query
+     offset — the bf16 kernel at smollm-135m's (4, 4096, 3, 3, 64) and
+     llava's (4, 4096, 8, 7, 128), the f32 kernel at (4, 4096, 3, 3, 64),
+     causal, the q rows split into P = 2, 4, 16 slices each launched with
+     q_offset = p·S/P (as each model rank of a context-parallel prefill
+     launches it): the slices concatenated bitwise the unsplit launch, each
+     against the plain version at its offset (FLASH_TOL), ms per slice
+     beside its bound; (b) inside a NCCL process group of world size 1,
+     ``launch/serve.py --mesh 1x1`` at smollm-135m's full width (phase 12's
+     4 x 4096 prompt, 32 greedy steps) through the model-parallel route:
+     prefill logits, last logits and tokens bitwise phase 12's one-process
+     run, 30 bf16 attention launches, the route's collectives counted; (c)
+     llava-next-34b on 8 layers, prefill only, one process and then
+     ``--mesh 1x1`` (context-parallel: 8 launches at q_offset 0): prefill
+     logits bitwise; (d) ``fl.engine.run_host_reference`` on phase 7's small
+     CNN, 3 rounds of two policies, card against CPU on the same inputs:
+     selections equal, round times rtol 1e-5, the final model within phase
+     7's relative L2, one FedAvg-combine launch a round.
 
 Launch counts are zeroed before each sweep and read after it; each sweep
 must launch its kernels once per (policy, round) (the local top-S once per
@@ -1627,6 +1645,7 @@ F32_SPLIT_KERNEL = "kv_split_tf32_kernel"
 TILE_CHECK_MAX_REL = 1e-6
 SERVE_ARGS = ["--arch", "smollm-135m", "--full", "--batch", "4",
               "--prompt-len", "4096", "--decode-steps", "32"]
+SERVE_ONE: dict = {}    # phase 12's one-process serve, for phase 18 (b)
 
 
 def flash_ops(b, sq, skv, kv, g, dh, causal) -> int:
@@ -1906,6 +1925,9 @@ def phase_serve(results: dict) -> None:
         raise AssertionError(f"[12] serve: tokens {out['tokens'].shape}")
     results["flash_attention_wgmma"]["launches"] = (
         counts["flash_attention_wgmma"])
+    SERVE_ONE.update({k: out[k].cpu() if torch.is_tensor(out[k]) else out[k]
+                      for k in ("tokens", "prefill_logits", "logits",
+                                "prefill_ms", "tok_per_s")})
     log(f"[12] serve smollm-135m full width, batch 4, prompt 4096, 32 "
         f"decode steps: prefill {out['prefill_ms']:.1f} ms, decode "
         f"{out['tok_per_s']:.1f} tok/s ({out['decode_s'] * 1e3:.1f} ms), "
@@ -2481,7 +2503,9 @@ def _plain_route():
     @contextlib.contextmanager
     def ctx():
         saved = ops._flash_forward, ops._rg_forward
-        ops._flash_forward = ref.flash_attention_ref
+        ops._flash_forward = (
+            lambda q, k, v, causal, q_offset=0: ref.flash_attention_ref(
+                q, k, v, causal, q_offset=q_offset))
         ops._rg_forward = ref.rg_lru_ref
         try:
             yield
@@ -3204,7 +3228,7 @@ def fl_equal(label: str, got, want, what: str) -> None:
 
 
 @contextlib.contextmanager
-def process_group():
+def process_group(label: str = "17"):
     """A NCCL process group of world size 1 on cuda:0 (a file rendezvous
     under build/), destroyed on the way out."""
     import torch.distributed as dist
@@ -3217,7 +3241,7 @@ def process_group():
         t0 = time.perf_counter()       # the first collective makes NCCL's
         dist.all_reduce(torch.zeros(1, device="cuda"))     # communicator
         torch.cuda.synchronize()
-        log(f"[17] NCCL process group of world size 1 on cuda:0, first "
+        log(f"[{label}] NCCL process group of world size 1 on cuda:0, first "
             f"collective {time.perf_counter() - t0:.3f} s")
         yield dist.group.WORLD
     finally:
@@ -3512,6 +3536,331 @@ def phase_devices(results: dict) -> None:
         f"{card_name_and_power()}")
 
 
+# ---------------------------------------------------------------------------
+# phase 18: the LM stack over a device mesh: the attention kernels at a
+# query offset, smollm-135m and llava-next-34b through --mesh 1x1 on one
+# NCCL rank, and the FL host-loop reference
+# ---------------------------------------------------------------------------
+
+# (a): (B, Sq = Skv, KV, G, dh, dtype) causal, its q rows split into P
+# slices of Sq / P rows, each launched with q_offset = p·Sq / P
+OFFSET_CASES = [(4, 4096, 3, 3, 64, "bfloat16"), (4, 4096, 8, 7, 128,
+                                                  "bfloat16"),
+                (4, 4096, 3, 3, 64, "float32")]
+OFFSET_SPLITS = (2, 4, 16)
+# SDPA's output at the offsets against the kernel's, |diff| / (1 + |out|):
+# a check that the library calls timed beside the kernel compute the same
+# function (a wrong mask moves outputs by tenths; two bf16 roundings of one
+# value differ by at most 2^-7 of it), not a gate of either's precision
+SDPA_SANITY = 2e-2
+
+
+def flash_ops_rows(b, q0, q1, skv, kv, g, dh, causal) -> int:
+    """4·dh float operations of query rows [q0, q1) (row i at position i)
+    against Skv keys: the keys j <= i when causal."""
+    if not causal:
+        return 4 * b * kv * g * (q1 - q0) * skv * dh
+    n = max(0, min(q1, skv) - q0)              # rows whose diagonal is inside
+    inside = n * (q0 + 1) + n * (n - 1) // 2 if n else 0
+    pairs = inside + (q1 - q0 - n) * skv
+    return 4 * b * kv * g * pairs * dh
+
+
+def offset_slice_bound(b, q0, q1, skv, kv, g, dh, itemsize):
+    """Least time (ms) of one causal slice launch: its operations over the
+    type's tensor-core peak against its q rows and output and the keys it
+    attends, the first min(q1, Skv) of k and v (the kernel reads no key
+    beyond its last row's position), moved once over the memory rate."""
+    ops = flash_ops_rows(b, q0, q1, skv, kv, g, dh, True)
+    rate = BF16_TC_OPS_PER_S if itemsize == 2 else TF32_TC_OPS_PER_S
+    keys = min(q1, skv)
+    nbytes = itemsize * (2 * b * (q1 - q0) * kv * g * dh
+                         + 2 * b * keys * kv * dh)
+    t_ops, t_bytes = ops / rate * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def offset_sdpa(q, k, v, q0: int):
+    """The library's two single calls for one causal slice at q_offset
+    ``q0`` (q [B, rows, KV, G, dh] and all of k, v [B, S, KV, dh], in SDPA's
+    [B, heads, S, dh] layout made here, outside the timed calls): a boolean
+    mask [rows, S] over every key, and ``causal_lower_right`` over the
+    first q0 + rows keys, the same function.  Returns the two calls and a
+    map of SDPA's output back to [B, rows, KV, G, dh]."""
+    import torch.nn.functional as F
+    from torch.nn.attention.bias import causal_lower_right
+    b, rows, kv, g, dh = q.shape
+    qs = q.permute(0, 2, 3, 1, 4).reshape(b, kv * g, rows, dh).contiguous()
+    ks, vs = (x.permute(0, 2, 1, 3).contiguous() for x in (k, v))
+    keys = q0 + rows
+    mask = (torch.arange(k.shape[1], device=q.device)[None, :]
+            <= q0 + torch.arange(rows, device=q.device)[:, None])
+    kc, vc = ks[:, :, :keys], vs[:, :, :keys]
+    lower = causal_lower_right(rows, keys)
+
+    def masked():
+        return F.scaled_dot_product_attention(qs, ks, vs, attn_mask=mask,
+                                              enable_gqa=True)
+
+    def lower_right():
+        return F.scaled_dot_product_attention(qs, kc, vc, attn_mask=lower,
+                                              enable_gqa=True)
+
+    def back(o):
+        return o.reshape(b, kv, g, rows, dh).permute(0, 3, 1, 2, 4)
+    return masked, lower_right, back
+
+
+def phase_offset_kernels(results: dict) -> None:
+    """(a): each case's unsplit causal launch, then its q rows in P slices
+    launched with their q_offset: the slices concatenated bitwise the
+    unsplit output (each warpgroup's 64 rows start at the same global row
+    in both, since Sq / P · G is a multiple of 64, so every row sees the
+    same tiles, masked and plain alike), each slice against the plain
+    version with the same q_offset under FLASH_TOL; ms per slice by CUDA
+    events beside its bound and beside SDPA's two single calls of the same
+    slice (``offset_sdpa``; the faster is the slice's library time)."""
+    from repro_torch.kernels import flash_attention as cuda_flash
+    from repro_torch.kernels import ref
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(18)
+    for b, s, kv, g, dh, dtype in OFFSET_CASES:
+        name, _ = FLASH_VARIANT[dtype]
+        dt = getattr(torch, dtype)
+        q, k, v = (torch.randn(shape, generator=gen, device="cuda").to(dt)
+                   for shape in ((b, s, kv, g, dh), (b, s, kv, dh),
+                                 (b, s, kv, dh)))
+        whole = cuda_flash.flash_attention_cuda(q, k, v, True)
+        whole_ms = time_ms(lambda: cuda_flash.flash_attention_cuda(
+            q, k, v, True), 3)
+        res = results[name]
+        rows = res.setdefault("offsets", {})
+        for n_split in OFFSET_SPLITS:
+            if (s // n_split * g) % 64:
+                raise AssertionError(f"[18] {s} / {n_split} rows x G {g} "
+                                     f"is no multiple of 64")
+            rs = s // n_split
+            parts = [q[:, p * rs:(p + 1) * rs].contiguous()
+                     for p in range(n_split)]
+            reset_counts()
+            outs = [cuda_flash.flash_attention_cuda(x, k, v, True,
+                                                    q_offset=p * rs)
+                    for p, x in enumerate(parts)]
+            counts = check_launches("18", {name: n_split})
+            got = torch.cat(outs, 1)
+            torch.cuda.synchronize()
+            where = (f"{name} (B, S, KV, G, dh)=({b}, {s}, {kv}, {g}, {dh}) "
+                     f"causal {dtype}, {n_split} slices of {rs} rows")
+            if not torch.equal(got, whole):
+                d = (got.float() - whole.float()).abs().max().item()
+                raise AssertionError(f"[18] {where}: the slices differ from "
+                                     f"the unsplit launch (max abs {d:g})")
+            err = 0.0
+            for p, (x, o) in enumerate(zip(parts, outs)):
+                want = ref.flash_attention_ref(x, k, v, True, q_offset=p * rs)
+                torch.testing.assert_close(
+                    o, want, **FLASH_TOL[dtype],
+                    msg=f"[18] {where}: slice {p} differs from the plain "
+                        f"version at q_offset {p * rs}")
+                err = max(err, (o.float() - want.float()).abs().max().item())
+            res["max_abs_err"] = max(res.get("max_abs_err") or 0.0, err)
+            ms = [time_ms(lambda x=x, p=p: cuda_flash.flash_attention_cuda(
+                x, k, v, True, q_offset=p * rs), 3) for p, x in
+                enumerate(parts)]
+            bms = [offset_slice_bound(b, p * rs, (p + 1) * rs, s, kv, g, dh,
+                                      q.element_size())[0]
+                   for p in range(n_split)]
+            pms = time_ms(lambda: ref.flash_attention_ref(
+                parts[-1], k, v, True, q_offset=(n_split - 1) * rs), 1)
+            lib = {"mask": [], "lower_right": []}
+            lib_err = 0.0
+            for p, (x, o) in enumerate(zip(parts, outs)):
+                masked, lower, back = offset_sdpa(x, k, v, p * rs)
+                for key, call in (("mask", masked), ("lower_right", lower)):
+                    d = ((back(call()).float() - o.float()).abs()
+                         / (1 + o.float().abs())).max().item()
+                    lib_err = max(lib_err, d)
+                    lib[key].append(time_ms(call, 3))
+            if not lib_err < SDPA_SANITY:
+                raise AssertionError(f"[18] {where}: SDPA at the offsets "
+                                     f"differs from the kernel by "
+                                     f"{lib_err:g}: not the same function")
+            lms = [min(a, c) for a, c in zip(lib["mask"],
+                                              lib["lower_right"])]
+            rows[f"{b}x{s}x{kv}x{g}x{dh}/P{n_split}"] = dict(
+                launches=counts[name], ms=ms, bound_ms=bms,
+                plain_ms_last=pms, max_abs_err=err, unsplit_ms=whole_ms,
+                library_ms=lms, sdpa_mask_ms=lib["mask"],
+                sdpa_lower_right_ms=lib["lower_right"])
+            log(f"[18] {where}: bitwise the unsplit launch; against the "
+                f"plain version max abs err {err:.3g}; {counts[name]} "
+                f"launches; ms per slice {', '.join(f'{t:.4f}' for t in ms)} "
+                f"(sum {sum(ms):.4f}; the unsplit launch {whole_ms:.4f}); "
+                f"bound per slice "
+                f"{', '.join(f'{t:.4f}' for t in bms)}; SDPA per slice, "
+                f"boolean mask over every key "
+                f"{', '.join(f'{t:.4f}' for t in lib['mask'])}; "
+                f"causal_lower_right over the attended keys "
+                f"{', '.join(f'{t:.4f}' for t in lib['lower_right'])} "
+                f"(from the kernel at most {lib_err:.3g} of 1 + |out|); "
+                f"plain version "
+                f"of the last slice {pms:.1f} ms")
+
+
+LLAVA_LAYERS = 8                  # (c): phase 16's cut of llava's depth
+HOST_REF_ROUNDS = 3               # (d)
+
+
+def _collectives() -> dict:
+    from repro_torch.distributed import sharding
+    return {k: v["calls"] for k, v in sharding.collective_counts.items()}
+
+
+def phase_mesh_serve(results: dict) -> None:
+    """(b): ``launch/serve.py --mesh 1x1`` at smollm-135m's full width, 4 x
+    4096 prompt tokens and 32 greedy steps, on one NCCL rank: the
+    model-parallel route (a 1 x 1 mesh: every collective runs over a group
+    of one) bitwise phase 12's one-process run, prefill logits, last
+    logits and tokens, with 30 bf16 attention launches a prefill and the
+    collectives the route issues.  (c): llava-next-34b cut to 8 layers
+    (phase 16's cut), prefill only, one process then through the same mesh
+    path, whose ``shard_attn_batch`` makes the prefill context-parallel
+    (the kernel at q_offset 0 here): prefill logits bitwise."""
+    from repro_torch.launch import serve
+    if not SERVE_ONE:
+        raise AssertionError("[18] phase 12's serve did not run")
+    res = results["flash_attention_wgmma"]
+    mesh_launches = {}
+    with process_group("18"):
+        reset_counts()
+        torch.cuda.empty_cache()
+        out = serve.main(SERVE_ARGS + ["--mesh", "1x1"])
+        counts = check_launches("18", {"flash_attention_wgmma": 30})
+        for key in ("prefill_logits", "logits"):
+            if not torch.equal(out[key].cpu(), SERVE_ONE[key]):
+                raise AssertionError(f"[18] smollm-135m --mesh 1x1: {key} "
+                                     f"differ from the one-process run")
+        if not np.array_equal(out["tokens"], SERVE_ONE["tokens"]):
+            raise AssertionError("[18] smollm-135m --mesh 1x1: tokens "
+                                 "differ")
+        coll = out["collectives"]
+        if min(coll["prefill"]["all_reduce"][0],
+               coll["prefill"]["all_gather"][0],
+               coll["decode"]["all_reduce_max"][0]) < 1:
+            raise AssertionError(f"[18] the sharded route did not run: "
+                                 f"{coll}")
+        mesh_launches["smollm-135m"] = counts["flash_attention_wgmma"]
+        log(f"[18] serve smollm-135m full width --mesh 1x1 (one NCCL rank), "
+            f"batch 4, prompt 4096, 32 decode steps: prefill logits, last "
+            f"logits and tokens bitwise phase 12's one-process run; prefill "
+            f"{out['prefill_ms']:.1f} ms (one process "
+            f"{SERVE_ONE['prefill_ms']:.1f} ms), decode "
+            f"{out['tok_per_s']:.1f} tok/s (one process "
+            f"{SERVE_ONE['tok_per_s']:.1f}); collectives (calls, bytes) "
+            f"{coll}; attention kernel launches {counts}")
+        del out
+        argv = ["--arch", "llava-next-34b", "--full", "--layers",
+                str(LLAVA_LAYERS), "--batch", "4", "--prompt-len", "4096",
+                "--decode-steps", "0"]
+        torch.cuda.empty_cache()
+        one = serve.main(argv)["prefill_logits"].cpu()
+        torch.cuda.empty_cache()
+        reset_counts()
+        out = serve.main(argv + ["--mesh", "1x1"])
+        counts = check_launches("18", {"flash_attention_wgmma": LLAVA_LAYERS})
+        if not torch.equal(out["prefill_logits"].cpu(), one):
+            d = (out["prefill_logits"].cpu().float() - one.float()).abs()
+            raise AssertionError(f"[18] llava --mesh 1x1 prefill logits "
+                                 f"differ (max abs {d.max().item():g})")
+        coll = out["collectives"]["prefill"]
+        # context-parallel: per layer 4 weight gathers and the output's
+        if coll["all_gather"][0] < 5 * LLAVA_LAYERS:
+            raise AssertionError(f"[18] llava: not the context-parallel "
+                                 f"route: {coll}")
+        mesh_launches["llava-next-34b"] = counts["flash_attention_wgmma"]
+        log(f"[18] serve llava-next-34b full width on {LLAVA_LAYERS} layers "
+            f"--mesh 1x1, batch 4, prompt 4096 (2880 patches + 1216 text), "
+            f"context-parallel prefill: logits bitwise the one-process "
+            f"prefill; prefill {out['prefill_ms']:.1f} ms; collectives "
+            f"(calls, bytes) {coll}; attention kernel launches {counts}")
+        del out
+    torch.cuda.empty_cache()
+    res["mesh_launches"] = mesh_launches
+
+
+def phase_host_reference() -> None:
+    """(d): ``fl.engine.run_host_reference`` on phase 7's small CNN (BN
+    off, 12 clients, 6 candidates, S = 3, 2 epochs of batch 10), 3 rounds
+    of two policies on the same CPU-made inputs on the card and on the CPU
+    (TF32 off): selections equal, round times within rtol 1e-5, the final
+    model within phase 7's relative L2; on the card one FedAvg-combine
+    launch a round and no other kernel."""
+    from repro_torch.fl import engine as fl
+    from repro_torch.models import cnn
+    saved = (torch.backends.cudnn.allow_tf32,
+             torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        cfg = cnn.CnnConfig(batchnorm=False, **SMALL_CNN)
+        tasks = {dev: fl.make_cnn_task(
+            "paper-baseline", 12, cfg=cfg, n_train=600, n_test=400,
+            eval_batch=200, max_samples=40, batch_size=10, device=dev)
+            for dev in ("cpu", "cuda")}
+        cap = tasks["cpu"].part_idx.shape[1]
+        gen = torch.Generator().manual_seed(18)
+        r = HOST_REF_ROUNDS
+        pre = {"cand_masks": torch.stack([
+                   torch.zeros(12, dtype=torch.bool).index_fill(
+                       0, torch.randperm(12, generator=gen)[:6], True)
+                   for _ in range(r)]).numpy(),
+               "t_ud": (1.0 + 9.0 * torch.rand(r, 12, generator=gen)).numpy(),
+               "t_ul": (1.0 + 9.0 * torch.rand(r, 12, generator=gen)).numpy(),
+               "orders": torch.stack([fl.draw_orders(
+                   gen, 1, tasks["cpu"].part_count, 2, cap)[0]
+                   for _ in range(r)]).numpy()}
+        for policy in ("fedcs", "elementwise_ucb"):
+            out = {}
+            for dev, task in tasks.items():
+                reset_counts()
+                out[dev] = fl.run_host_reference(
+                    task, pre, policy=policy, s_round=3, cfg=cfg, epochs=2,
+                    batch_size=10)
+                if dev == "cuda":
+                    counts = check_launches("18", {"fedavg_combine": r})
+            a, b = out["cuda"], out["cpu"]
+            where = f"[18] run_host_reference {policy}"
+            if not np.array_equal(a["selected"], b["selected"]):
+                raise AssertionError(f"{where}: selections differ")
+            np.testing.assert_allclose(a["round_times"], b["round_times"],
+                                       rtol=1e-5, atol=0)
+            pa = torch.cat([v.flatten().cpu() for v in a["params"].values()])
+            pb = torch.cat([v.flatten() for v in b["params"].values()])
+            rl2 = ((pa - pb).norm() / pb.norm()).item()
+            if not rl2 < CARD_VS_CPU_RL2[False]:
+                raise AssertionError(f"{where}: final model at relative L2 "
+                                     f"{rl2:g}")
+            log(f"{where}: {r} rounds card against CPU on the same inputs: "
+                f"selections equal, round times max abs diff "
+                f"{np.abs(a['round_times'] - b['round_times']).max():g} s, "
+                f"final model at relative L2 {rl2:.3g} (limit "
+                f"{CARD_VS_CPU_RL2[False]:g}); accuracy card "
+                f"{a['accuracy'].round(4).tolist()} cpu "
+                f"{b['accuracy'].round(4).tolist()}; card launches {counts}")
+    finally:
+        torch.backends.cudnn.allow_tf32, \
+            torch.backends.cuda.matmul.allow_tf32 = saved
+
+
+def phase_mesh(results: dict) -> None:
+    t0 = time.perf_counter()
+    phase_offset_kernels(results)
+    phase_mesh_serve(results)
+    phase_host_reference()
+    log(f"[18] phase time {time.perf_counter() - t0:.1f} s; "
+        f"{card_name_and_power()}")
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: CUDA is not available; this script runs on "
@@ -3544,13 +3893,15 @@ def main() -> None:
     phase_train(results)
     phase_families(results)
     phase_devices(results)
+    phase_mesh(results)
     log(f"[done] {time.perf_counter() - t0:.1f} s")
     log(card_name_and_power())          # again, beside the results
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
             "device_ms")
     extra = ("shapes", "split_device_ms", "async_launches", "train_launches",
-             "fl_train_launches", "family_launches", "devices_launches")
+             "fl_train_launches", "family_launches", "devices_launches",
+             "offsets", "mesh_launches")
     print(json.dumps({"kernels": [
         {**{k: r[k] for k in keys}, **{k: r[k] for k in extra if k in r}}
         for r in results.values()]}))

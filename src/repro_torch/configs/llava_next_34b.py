@@ -8,7 +8,9 @@ seq_len counts the full backbone sequence (patches + text).
 
 A copy of ``repro.configs.llava_next_34b`` (the port imports nothing of the
 JAX package); tests/test_torch_lm.py holds the fields equal.
-``shard_attn_batch`` is kept as a field and routes nothing on one card."""
+``shard_attn_batch`` makes a prefill over a device mesh context-parallel:
+each ``model`` rank attends with its rows of the q sequence and all of k
+and v (models/layers.py); one process ignores it."""
 
 from repro_torch.models.layers import LMConfig
 

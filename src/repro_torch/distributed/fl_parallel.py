@@ -16,8 +16,10 @@ no group one process holds them all.  One FL round =
      compressed on the wire: int8 or top-k deltas all-gathered instead of
      float32 parameters.
 
-Tensor parallelism inside a cohort (the JAX mesh's ``model`` axis) is not
-ported: a cohort's model lies whole on its rank.
+A cohort's model lies whole on its rank.  The JAX mesh's ``model`` axis
+inside a cohort (tensor-parallel training) waits for the sharded train
+step: the model-parallel routes of ``models/layers.py`` serve (prefill and
+decode) over a mesh, with no gradient through their collectives yet.
 """
 
 from __future__ import annotations
@@ -217,8 +219,9 @@ def make_fl_round(loss_fn: Callable, opt: Optimizer, n_local_steps: int,
     (:func:`init_cohort_states`) and [C/R, n_local_steps, ...] minibatches;
     ``weights`` [C] = selection mask x n_samples over all cohorts (zeros
     drop a cohort).  The mean loss is the weight-averaged local loss over
-    all cohorts.  Each cohort's model lies whole on its rank: tensor
-    parallelism inside a cohort is not ported.
+    all cohorts.  Each cohort's model lies whole on its rank; the
+    ``model`` axis inside a cohort (a tensor-parallel train step) is not
+    taken yet (module docstring).
     """
     if compress not in COMPRESS:
         raise ValueError(f"unknown compress mode {compress!r}")

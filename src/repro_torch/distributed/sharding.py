@@ -35,6 +35,8 @@ not sharded.
 from __future__ import annotations
 
 import dataclasses
+import math
+import re
 
 import torch
 import torch.distributed as dist
@@ -143,10 +145,13 @@ def _check_backend(x: torch.Tensor, group) -> None:
 
 
 def all_reduce(x: torch.Tensor, group, op=dist.ReduceOp.SUM) -> torch.Tensor:
-    """``x`` reduced over the ranks of ``group`` in place (no-op for None)."""
+    """``x`` reduced over the ranks of ``group`` in place (no-op for None);
+    counted in ``collective_counts`` (below) when it runs."""
     if group is not None:
         _check_backend(x, group)
         dist.all_reduce(x, op=op, group=group)
+        _count("all_reduce_max" if op == dist.ReduceOp.MAX else "all_reduce",
+               x)
     return x
 
 
@@ -210,3 +215,350 @@ def bandit_state_bytes(k: int, n_shards: int = 1) -> int:
         nbytes = x.numel() * x.element_size()
         total += nbytes if x.dim() == 1 else -(-nbytes // n_shards)
     return total
+
+
+# ---------------------------------------------------------------------------
+# The model half: the PartitionSpec rules of every model family and the
+# collectives the model-parallel LMs run (models/layers.py).
+# ---------------------------------------------------------------------------
+#
+# A spec (:class:`Spec`) is a tuple with one entry per dim of a leaf: None
+# (whole), a mesh axis name, or a tuple of names; () is "replicated" (JAX's
+# ``P()``).  The rules, matched against the leaf's path ("layers/attn/wq"),
+# are applied from the right (trailing dims), so stacked leading layer or
+# group dims stay whole, and every axis is kept only where it divides its
+# dim evenly (seamless-m4t's vocab 256206 stays whole on 16 ranks).  ``fsdp`` also
+# splits one non-TP weight dim over ``data`` (ZeRO-3 style).  TP choices
+# (Megatron): column-parallel wq/wk/wv and w_gate/w_up (last dim over
+# ``model``), row-parallel wo/w_down (second-last dim), experts' E over
+# ``model``, the vocab of embed/unembed over ``model``, norms replicated;
+# dense KV caches hold batch over the data axes and the *sequence* over
+# ``model`` (split-KV decoding).  A mesh is given by its axis sizes, a dict
+# {name: size} in mesh order (:func:`axis_sizes`), so the rules need no
+# process group.
+
+class Spec(tuple):
+    """One leaf's spec: a tuple (equal to the JAX ``PartitionSpec`` of the
+    same entries), a leaf of spec trees whose nodes may be tuples too."""
+
+
+def axis_sizes(mesh) -> dict:
+    """{axis name: size} in mesh order, of a ``DeviceMesh`` or of such a
+    dict."""
+    if isinstance(mesh, dict):
+        return dict(mesh)
+    return dict(zip(mesh.mesh_dim_names, mesh.shape))
+
+
+def cohort_axes(mesh) -> tuple[str, ...]:
+    """Mesh axes that enumerate FL cohorts in the pod runtime: ``pod``
+    (when present) and ``data``."""
+    names = axis_sizes(mesh)
+    return tuple(a for a in ("pod", "data") if a in names)
+
+
+def batch_axes(mesh) -> tuple[str, ...]:
+    """Axes the global batch is split over (``pod`` included when
+    present)."""
+    return cohort_axes(mesh)
+
+
+def _batch_entry(sizes: dict):
+    """The batch axes as one spec entry, a lone name unwrapped as
+    ``PartitionSpec`` stores it."""
+    ba = batch_axes(sizes)
+    return ba[0] if len(ba) == 1 else ba
+
+
+def _path(keys) -> str:
+    return "/".join(str(k) for k in keys)
+
+
+def map_with_path(fn, tree, keys=()):
+    """``fn(path, leaf)`` over the leaves of a tree of dicts, tuples and
+    lists, the path joined by "/" as the JAX package flattens it."""
+    if isinstance(tree, dict):
+        return {k: map_with_path(fn, v, keys + (k,)) for k, v in tree.items()}
+    if isinstance(tree, (tuple, list)) and not isinstance(tree, Spec):
+        return type(tree)(map_with_path(fn, v, keys + (i,))
+                          for i, v in enumerate(tree))
+    return fn(_path(keys), tree)
+
+
+def spec_leaves(tree) -> list:
+    """The specs of a spec tree in its order."""
+    out = []
+    map_with_path(lambda _, x: out.append(x), tree)
+    return out
+
+
+def axis_size(sizes: dict, axis) -> int:
+    if axis is None:
+        return 1
+    if isinstance(axis, (tuple, list)):
+        return math.prod(sizes[a] for a in axis)
+    return sizes[axis]
+
+
+def _guarded(spec: tuple, shape: tuple, sizes: dict) -> Spec:
+    """Drop any axis that does not evenly divide its dim."""
+    return Spec(axis if axis is not None and dim > 1
+                 and dim % axis_size(sizes, axis) == 0 else None
+                 for dim, axis in zip(shape, spec))
+
+
+def _from_right(right: tuple, ndim: int) -> tuple:
+    right = tuple(right)
+    if ndim < len(right):
+        right = right[-ndim:]
+    return (None,) * (ndim - len(right)) + right
+
+
+# rules: (regex on path, spec-from-right). First match wins.
+def _param_rules(fsdp: bool) -> list[tuple[str, tuple | None]]:
+    d = "data" if fsdp else None
+    return [
+        # --- MoE experts: [.., E, D, F] / [.., E, F, D]
+        (r"moe/shared/w_(gate|up)$", (d, "model")),
+        (r"moe/shared/w_down$", ("model", d)),
+        (r"moe/.*w_(gate|up)$", ("model", d, None)),
+        (r"moe/.*w_down$", ("model", None, d)),
+        (r"moe/router$", (None, None)),
+        # --- xlstm (before generic attn/mlp rules)
+        (r"mlstm/.*w_if$", (None, None)),
+        (r"mlstm/.*w_[qk]$", (d, None)),
+        (r"mlstm/.*w_v$", (d, "model")),
+        (r"slstm", None),              # replicated (tiny, sequential cell)
+        # --- attention
+        (r"(attn|self_attn|cross_attn)/wq$", (d, "model")),
+        (r"wkv$", (d, "model")),
+        (r"(attn|self_attn|cross_attn)/w[kv]$", (d, "model")),
+        (r"(attn|self_attn|cross_attn)/wo$", ("model", d)),
+        (r"[qk]_norm$", (None,)),
+        # --- gated MLPs (dense mlp, mlstm up/gate, griffin w_gate)
+        (r"w_(gate|up)$", (d, "model")),
+        (r"w_down$", ("model", d)),
+        # --- embeddings
+        (r"embed/tok$", ("model", None)),
+        (r"unembed$", (None, "model")),
+        (r"patch_proj$", (None, "model")),
+        # --- griffin recurrent block
+        (r"w_x$", (d, "model")),
+        (r"w_[ri]$", (None, "model")),
+        (r"lam$", ("model",)),
+        (r"w_out$", ("model", d)),
+        (r"conv$", (None, "model")),
+        (r"w_in$", (d, None)),
+        # --- norms and anything else
+        (r"(norm|bias|scale)", None),
+    ]
+
+
+def spec_for_leaf(path_s: str, shape: tuple, rules, mesh) -> Spec:
+    """Resolve one param leaf (flattened ``path_s``, ``shape``) against the
+    rule table: first regex match wins, the spec is applied from the right
+    and divisibility-guarded; no match => replicated."""
+    sizes = axis_sizes(mesh)
+    for pat, right in rules:
+        if re.search(pat, path_s):
+            if right is None:
+                return Spec()
+            return _guarded(_from_right(right, len(shape)), shape, sizes)
+    return Spec()      # default: replicated (safe)
+
+
+def param_specs(param_shapes, cfg, mesh, fsdp: bool = False):
+    """Spec tree of a model's parameters (any tree of leaves with
+    ``.shape``: the ``meta`` tree of ``ModelApi.param_shapes`` or real
+    tensors), mirroring it.  ``cfg`` is unused, as in the JAX package."""
+    rules = _param_rules(fsdp)
+    return map_with_path(
+        lambda p, x: spec_for_leaf(p, tuple(x.shape), rules, mesh),
+        param_shapes)
+
+
+def cache_specs(cache_shapes, cfg, mesh):
+    """Decode caches and recurrent states: dense KV caches [L, B, S, KV,
+    dh] batch over the data axes and sequence over ``model``; griffin's
+    ring caches [B, Wnd, KV, dh] the window over ``model``; an enc-dec's
+    ``enc_out`` batch only; the mLSTM's C and n their last dim over
+    ``model``; any other state its last dim when that is >= 16."""
+    sizes = axis_sizes(mesh)
+    ba = _batch_entry(sizes)
+
+    def leaf(s, x):
+        nd = len(x.shape)
+        shape = tuple(x.shape)
+        if re.search(r"(^|/)(k|v)$", s) and nd == 5:      # [L,B,S,KV,dh]
+            return _guarded((None, ba, "model", None, None), shape, sizes)
+        if re.search(r"(^|/)(k|v)$", s) and nd == 4:      # [B,Wnd,KV,dh]
+            return _guarded((ba, "model", None, None), shape, sizes)
+        if s.endswith("enc_out"):                          # [B,S,D]
+            return _guarded((ba, None, None), shape, sizes)
+        if "mlstm" in s and nd == 6:                       # C [G,7,B,H,dh,dh]
+            return _guarded((None, None, ba, None, None, "model"), shape,
+                            sizes)
+        if "mlstm" in s and nd == 5:                       # n / conv_buf
+            return _guarded((None, None, ba, None, "model"), shape, sizes)
+        spec = [None] * nd
+        if nd >= 2 and shape[-1] >= 16:
+            spec[-1] = "model"
+        return _guarded(tuple(spec), shape, sizes)
+
+    return map_with_path(leaf, cache_shapes)
+
+
+def batch_specs(input_shapes, mesh):
+    """Input-batch specs: the leading (batch) dim over the data/pod axes,
+    everything else whole."""
+    sizes = axis_sizes(mesh)
+    ba = _batch_entry(sizes)
+    return map_with_path(
+        lambda _, x: _guarded((ba,) + (None,) * (len(x.shape) - 1),
+                              tuple(x.shape), sizes), input_shapes)
+
+
+def opt_specs(opt_shapes: dict, pspecs):
+    """Optimizer state: the moments (``m``, ``v``, ``mu``) take the
+    parameters' specs; the step counter and anything else replicate."""
+    out = {}
+    for k, v in opt_shapes.items():
+        if k in ("m", "v", "mu"):
+            out[k] = map_with_path(lambda _, s: s, pspecs)
+        else:
+            out[k] = map_with_path(lambda _, x: Spec(), v)
+    return out
+
+
+def local_shape(shape, spec: tuple, sizes: dict) -> tuple:
+    """One rank's block of a leaf of ``shape`` under ``spec``."""
+    spec = tuple(spec) + (None,) * (len(shape) - len(spec))
+    return tuple(d // axis_size(sizes, a) for d, a in zip(shape, spec))
+
+
+def local_bytes(shapes, specs, sizes: dict) -> int:
+    """Bytes of one rank's blocks of every leaf of ``shapes`` (leaves with
+    ``.shape`` and ``.dtype``) under the mirroring ``specs``."""
+    total = 0
+
+    def add(path, x):
+        nonlocal total
+        spec = spec_at(specs, path)
+        total += math.prod(local_shape(tuple(x.shape), spec, sizes)) \
+            * x.dtype.itemsize
+    map_with_path(add, shapes)
+    return total
+
+
+def spec_at(specs, path: str) -> Spec:
+    """The spec of the leaf at ``path`` ("a/b/0") of a spec tree."""
+    node = specs
+    for k in path.split("/") if path else ():
+        node = node[int(k) if isinstance(node, (tuple, list)) else k]
+    return node
+
+
+def mesh_coords(mesh) -> dict:
+    """{axis name: this rank's index along it} of a ``DeviceMesh``."""
+    return dict(zip(mesh.mesh_dim_names, mesh.get_coordinate()))
+
+
+def block_index(axis, coords: dict, sizes: dict) -> int:
+    """This rank's block along ``axis`` (a name or a tuple of names, the
+    first outermost, as a ``NamedSharding`` lays them out)."""
+    names = axis if isinstance(axis, (tuple, list)) else (axis,)
+    idx = 0
+    for a in names:
+        idx = idx * sizes[a] + coords[a]
+    return idx
+
+
+def shard_leaf(x: torch.Tensor, spec: tuple, coords: dict,
+               sizes: dict) -> torch.Tensor:
+    """This rank's contiguous block of ``x`` under ``spec``: along each
+    split dim, block ``block_index`` of ``axis_size`` equal ones (a view
+    where nothing is split)."""
+    for dim, axis in enumerate(spec):
+        if axis is None:
+            continue
+        n = axis_size(sizes, axis)
+        size = x.shape[dim] // n
+        x = x.narrow(dim, block_index(axis, coords, sizes) * size, size)
+    return x.contiguous()
+
+
+def block_keeper(specs, sizes: dict, coords: dict):
+    """``keep(path, tree, lead=0)`` for a model's ``init``: the rank at
+    ``coords`` of a mesh of ``sizes`` keeps its blocks (:func:`shard_leaf`)
+    of ``tree``, the subtree at ``path`` ("a/b") of the parameter tree
+    whose spec tree is ``specs``.  With ``lead`` > 0, ``tree`` is one draw
+    of leaves stacked on that many leading dims ([L]: one layer), cut by
+    their specs less those dims, which no rule splits.  An ``init`` that
+    calls it on each subtree as it is drawn holds this rank's share of the
+    model and one draw whole, never the whole model."""
+    def keep(path, tree, lead: int = 0):
+        sub = spec_at(specs, path)
+
+        def cut(p, x):
+            spec = tuple(spec_at(sub, p))
+            if any(a is not None for a in spec[:lead]):
+                raise ValueError(f"{path}/{p}: a stacked dim is split "
+                                 f"({spec})")
+            return shard_leaf(x, spec[lead:], coords, sizes)
+        return map_with_path(cut, tree)
+    return keep
+
+
+def shard_params(params, specs, mesh):
+    """Each leaf of ``params`` cut to this rank's block of the
+    ``DeviceMesh`` ``mesh`` under the mirroring ``specs`` (``torch.chunk``
+    along each split dim, the blocks in mesh order as a ``NamedSharding``
+    lays them out)."""
+    sizes, coords = axis_sizes(mesh), mesh_coords(mesh)
+    return map_with_path(
+        lambda p, x: shard_leaf(x, spec_at(specs, p), coords, sizes), params)
+
+
+# The collectives of the model-parallel LMs.  Each counts its calls and
+# bytes (all_reduce: the tensor's; all_gather: the gathered result's, the
+# JAX package's result-shape convention) while it runs, for the dry run and
+# chip_smoke.py to read.
+
+collective_counts = {kind: {"calls": 0, "bytes": 0}
+                     for kind in ("all_reduce", "all_reduce_max",
+                                  "all_gather")}
+
+
+def reset_collective_counts() -> None:
+    for c in collective_counts.values():
+        c["calls"] = c["bytes"] = 0
+
+
+def _count(kind: str, x: torch.Tensor) -> None:
+    collective_counts[kind]["calls"] += 1
+    collective_counts[kind]["bytes"] += x.numel() * x.element_size()
+
+
+def all_reduce_max(x: torch.Tensor, group) -> torch.Tensor:
+    """``x`` replaced in place by its elementwise max over the ranks of
+    ``group`` (no-op for None)."""
+    return all_reduce(x, group, op=dist.ReduceOp.MAX)
+
+
+def all_gather(x: torch.Tensor, dim: int, group) -> torch.Tensor:
+    """Every rank's ``x`` concatenated along ``dim`` in rank order (a new
+    contiguous tensor, laid out as one process would hold it; ``x`` itself
+    for ``group`` None)."""
+    if group is None:
+        return x
+    _check_backend(x, group)
+    n = dist.get_world_size(group)
+    xt = x.movedim(dim, 0).contiguous()
+    out = xt.new_empty((n * xt.shape[0],) + tuple(xt.shape[1:]))
+    # torch 2.13 names it all_gather_single and deprecates the older name,
+    # which earlier versions alone have
+    gather = getattr(dist, "all_gather_single", None) \
+        or dist.all_gather_into_tensor
+    gather(out, xt, group=group)
+    _count("all_gather", out)
+    return out.movedim(0, dim).contiguous()

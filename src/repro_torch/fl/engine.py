@@ -34,9 +34,9 @@ FedBuff twin ``_async_fl_segment`` -> :func:`async_fl_segment`,
 its ``"perm"`` stream (:func:`draw_orders`): the tests hand both packages
 the same orders.  ``accuracy_sweep`` spreads its grid or its clients'
 bandit state over the ranks of a ``torch.distributed`` process group
-(``devices``, ``shard``; distributed/sharding.py).  Not ported yet: the
-host reference loop (ROADMAP Queue 1, "The sweep and FL entry points that
-still raise").
+(``devices``, ``shard``; distributed/sharding.py).  The host-loop twin of
+:func:`run_replay`, ``run_host_reference``, trains one client at a time
+through ``fl/server.LocalTrainer`` and ``fl/aggregation.fedavg``.
 """
 
 from __future__ import annotations
@@ -55,7 +55,8 @@ from repro_torch.data.partition import (dirichlet_partition, iid_partition,
 from repro_torch.data.synthetic import make_synthetic_cifar
 from repro_torch.distributed import sharding
 from repro_torch.fl import metrics
-from repro_torch.fl.aggregation import GUARD_MAX_NORM
+from repro_torch.fl.aggregation import GUARD_MAX_NORM, fedavg
+from repro_torch.fl.server import LocalTrainer
 from repro_torch.kernels import ops
 from repro_torch.models import cnn
 from repro_torch.optim.sgd import PAPER_LR0, PAPER_LR_DECAY, round_lrs
@@ -442,6 +443,96 @@ def run_replay(task: FlTask, hyper: float, cand_masks, t_ud, t_ul, orders, *,
             "accuracy": torch.stack(accs).cpu().numpy(),
             "selected": torch.stack(sels).cpu().numpy(),
             "params": unflatten(params[0], spec)}
+
+
+def run_host_reference(task: FlTask, pre: dict, *,
+                       scenario: Scenario | str = "paper-baseline",
+                       policy: str = "elementwise_ucb",
+                       hyper: float | None = None, s_round: int = 5,
+                       cfg: cnn.CnnConfig = cnn.CnnConfig(),
+                       epochs: int = PAPER_EPOCHS,
+                       batch_size: int = PAPER_BATCH) -> dict:
+    """The disconnected host loop the engine replaces — the port of the
+    JAX package's ``run_host_reference``: per round the bandit round on
+    one [1, K] state (``core.bandit.round_via_mask``), then
+    ``fl/server.LocalTrainer`` trains the selected clients one at a time,
+    one SGD step (``torch.func.grad`` of ``models/cnn.loss_fn``) per
+    minibatch, and ``fl/aggregation.fedavg`` combines them by shard size
+    (the FedAvg-combine kernel when the parameters lie on the card), then
+    the test accuracy.
+
+    It consumes :func:`run_replay`'s inputs from ``pre``: ``cand_masks``
+    [R, K], ``t_ud``/``t_ul`` [R, K], ``orders`` [R, K, E, cap] (each
+    client's epoch orders, drawn from the JAX package's ``perm_keys`` with
+    its idiom when ``pre`` comes from JAX's ``run_host_reference``) and,
+    for the random policy, ``rand`` [R, K].  A run is ``run_replay``'s
+    common-random-number twin: the same selections and round times, the
+    accuracy within float tolerance.  A round that selects no client still
+    advances the learning-rate schedule.  ``scenario`` is checked only:
+    churn has a state the replayed inputs cannot carry.  Returns numpy
+    ``round_times``, ``elapsed``, ``accuracy``, ``selected`` [R, S], the
+    final ``params`` dict and ``pre``.
+    """
+    scen = get_scenario(scenario) if isinstance(scenario, str) else scenario
+    if scen.churn_prob > 0.0:
+        raise ValueError("the host reference only supports stateless "
+                         "resource processes (churn_prob == 0)")
+    bandit.check_policy(policy)
+    if hyper is None:
+        hyper = bandit.DEFAULT_HYPERS[policy]
+    device = task.device
+
+    def t(x, dtype=torch.float32):
+        return torch.as_tensor(np.asarray(x), dtype=dtype, device=device)
+    masks, t_ud, t_ul = t(pre["cand_masks"], torch.bool), t(pre["t_ud"]), \
+        t(pre["t_ul"])
+    orders = t(pre["orders"], torch.int64)
+    rand = None if pre.get("rand") is None else t(pre["rand"])
+    cap = task.part_idx.shape[1]
+    grad = torch.func.grad(lambda p, x, y: cnn.loss_fn(p, x, y, cfg))
+
+    def client_update(params, k, rnd):
+        idx, count = task.part_idx[k], int(task.part_count[k])
+        lr = float(np.float32(_round_lr(rnd)))
+        p = dict(params)
+        for e in range(epochs):
+            perm = idx[orders[rnd, k, e]]
+            for b in range(cap // batch_size):
+                if (b + 1) * batch_size <= count:
+                    bidx = perm[b * batch_size:(b + 1) * batch_size]
+                    g = grad(p, task.train_x[bidx], task.train_y[bidx])
+                    p = {n: v - lr * g[n] for n, v in p.items()}
+        return p, float(count)
+
+    def aggregate(global_params, results):
+        return fedavg([p for p, _ in results], [w for _, w in results])
+
+    trainer = LocalTrainer(task.params0, client_update, aggregate)
+    state = bandit.BanditState.create(1, masks.shape[1], device=device)
+    decay = bandit.policy_decay(policy)
+    spec = FlatSpec.of_tree(task.params0)
+    evaluate = make_evaluator(cfg)
+    rts, accs, sels = [], [], []
+    for r in range(masks.shape[0]):
+        state, sel, rt = bandit.round_via_mask(
+            state, masks[r][None], t_ud[r][None], t_ul[r][None],
+            None if rand is None else rand[r][None], hyper, policy=policy,
+            s_round=s_round, decay=decay)
+        chosen = [int(x) for x in sel[0].tolist() if x >= 0]
+        if chosen:
+            trainer.train_round(chosen)
+        else:                       # keep the lr round counter in sync
+            trainer.rounds_done += 1
+        accs.append(float(evaluate(flatten(trainer.params, spec)[None], spec,
+                                   task.test_x, task.test_y,
+                                   task.test_mask)[0]))
+        rts.append(rt[0])
+        sels.append(sel[0])
+    rts = torch.stack(rts).cpu().numpy()
+    return {"round_times": rts, "elapsed": np.cumsum(rts),
+            "accuracy": np.asarray(accs, np.float32),
+            "selected": torch.stack(sels).cpu().numpy(),
+            "params": trainer.params, "pre": pre}
 
 
 # ---------------------------------------------------------------------------

@@ -3,7 +3,8 @@
 //   o[b, i, h, g] = sum_j softmax_j(q[b, i, h, g] . k[b, j, h] * dh^-0.5) v[b, j, h]
 //   q: [B, Sq, KV, G, dh], k, v: [B, Skv, KV, dh], o like q, all float32,
 //   dh in {32, 64, 128}
-// over the keys j <= i (causal, top-left aligned) or all keys.
+// over the keys j <= i + q_offset (causal: query i at position q_offset + i,
+// top-left aligned at q_offset = 0) or all keys.
 //
 // Replaces the TPU kernel of the JAX package
 //   repro/kernels/flash_attention.py::flash_attention_fwd (body
@@ -567,7 +568,8 @@ __device__ __forceinline__ void produce(const CUtensorMap* tm_k,
 template <int DH>
 __device__ __forceinline__ void consume(
     const float* __restrict__ q, float* __restrict__ o, int sq, int skv,
-    int kv, int g, int causal, float scale, int b, int h, int64_t rows,
+    int kv, int g, int causal, int q_offset, float scale, int b, int h,
+    int64_t rows,
     int64_t w0, int n_tiles, uint32_t q_hi, uint32_t q_lo, uint32_t ring,
     Bars bars, int bar_id) {
   using T = Tile<DH>;
@@ -605,12 +607,18 @@ __device__ __forceinline__ void consume(
     const int64_t row = w0 + 16 * warp + grp + 8 * i;
     pos[i] = (int)((row < rows ? row : rows - 1) / g);
   }
+  int qpos[2];                     // their query positions, for the mask
+#pragma unroll
+  for (int i = 0; i < 2; ++i) qpos[i] = q_offset + pos[i];
   // tiles this warpgroup computes (up to its last row's diagonal), and how
   // many of them come first and need no mask (below its first row's
-  // diagonal and inside Skv)
+  // diagonal and inside Skv); every diagonal is shifted by q_offset
   int n_work = live ? n_tiles : 0;
-  if (live && causal && last_pos / BN + 1 < n_work) n_work = last_pos / BN + 1;
-  const int kv_plain = causal && first_pos + 1 < skv ? first_pos + 1 : skv;
+  if (live && causal && (q_offset + last_pos) / BN + 1 < n_work)
+    n_work = (q_offset + last_pos) / BN + 1;
+  const int kv_plain = causal && q_offset + first_pos + 1 < skv
+                           ? q_offset + first_pos + 1
+                           : skv;
   const int n_plain = kv_plain / BN < n_work ? kv_plain / BN : n_work;
 
   float acc[DH / 2];
@@ -637,7 +645,7 @@ __device__ __forceinline__ void consume(
     fence_regs(sc);
     mbar_arrive_lane0(bars.empty_k(s), lane);         // K(t) consumed
     float corr[2];
-    softmax_tile<EDGE, BN>(sc, m, l, corr, scale, t * BN, tq, pos, skv,
+    softmax_tile<EDGE, BN>(sc, m, l, corr, scale, t * BN, tq, qpos, skv,
                            causal);
 #pragma unroll
     for (int j = 0; j < DH / 8; ++j) {
@@ -697,7 +705,7 @@ flash_attention_3xtf32_kernel(const __grid_constant__ CUtensorMap tm_k,
                               const __grid_constant__ CUtensorMap tm_v,
                               const float* __restrict__ q,
                               float* __restrict__ o, int sq, int skv, int kv,
-                              int g, int causal, float scale) {
+                              int g, int causal, int q_offset, float scale) {
   using T = Tile<DH>;
   extern __shared__ uint8_t smem_raw[];
   const uint32_t raw = smem_u32(smem_raw);
@@ -711,7 +719,8 @@ flash_attention_3xtf32_kernel(const __grid_constant__ CUtensorMap tm_k,
   const int64_t r0 = (int64_t)(gridDim.y - 1 - blockIdx.y) * T::ROWS;
   const int64_t r_last = (r0 + T::ROWS < rows ? r0 + T::ROWS : rows) - 1;
   int kv_end = skv;
-  if (causal && (int)(r_last / g) + 1 < kv_end) kv_end = (int)(r_last / g) + 1;
+  if (causal && q_offset + (int)(r_last / g) + 1 < kv_end)
+    kv_end = q_offset + (int)(r_last / g) + 1;
   const int n_tiles = (kv_end + T::BN - 1) / T::BN;
   const int wg = threadIdx.x / 128;
 
@@ -730,7 +739,7 @@ flash_attention_3xtf32_kernel(const __grid_constant__ CUtensorMap tm_k,
     if (threadIdx.x == 128 * T::CONSUMERS)
       produce<DH>(&tm_k, &tm_v, bh, gridDim.x, n_tiles, ring, bars);
   } else {
-    consume<DH>(q, o, sq, skv, kv, g, causal, scale, b, h, rows,
+    consume<DH>(q, o, sq, skv, kv, g, causal, q_offset, scale, b, h, rows,
                 r0 + 64 * wg, n_tiles, q_s + 64 * wg * 128,
                 q_s + T::Q_BYTES + 64 * wg * 128, ring, bars, 1 + wg);
   }
@@ -913,7 +922,7 @@ int split_launch(const void* k, const void* v, void* scratch, int bkv,
 template <int DH>
 int launch(const void* q, const void* k, const void* v, void* o,
            void* scratch, int b, int sq, int skv, int kv, int g, int causal,
-           float scale, cudaStream_t stream) {
+           int q_offset, float scale, cudaStream_t stream) {
   using T = Tile<DH>;
   const int64_t tiles = ((int64_t)sq * g + T::ROWS - 1) / T::ROWS;
   if (tiles > 65535) return (int)cudaErrorInvalidValue;
@@ -940,7 +949,7 @@ int launch(const void* q, const void* k, const void* v, void* o,
   flash_attention_3xtf32_kernel<DH>
       <<<dim3((unsigned)bkv, (unsigned)tiles), T::THREADS, T::SMEM, stream>>>(
           tk, tv, static_cast<const float*>(q), static_cast<float*>(o), sq,
-          skv, kv, g, causal, scale);
+          skv, kv, g, causal, q_offset, scale);
   return (int)cudaGetLastError();
 }
 
@@ -974,29 +983,31 @@ extern "C" {
 // k and v [b, skv, kv, dh], o like q, all contiguous float32 with 16-byte
 // aligned bases; `scratch` holds 4 * b * kv * Skv_pad * dh floats (Skv_pad
 // = skv rounded up to a multiple of 64) for the split K/V; dh in
-// {32, 64, 128}; `scale` multiplies the logits.  Two launches: the split
-// pass, then the attention kernel.  Returns the cudaError_t of the launches
+// {32, 64, 128}; query row i sits at position q_offset + i (q_offset >= 0;
+// causal masks key j > q_offset + i); `scale` multiplies the logits.  Two
+// launches: the split pass, then the attention kernel.  Returns the
+// cudaError_t of the launches
 // (cudaErrorInvalidValue for sizes the kernel does not take or a tensor
 // map the driver refuses).
 int flash_attention_launch(const void* q, const void* k, const void* v,
                            void* o, void* scratch, int b, int sq, int skv,
-                           int kv, int g, int dh, int causal, float scale,
-                           void* stream) {
-  if (b < 1 || sq < 1 || skv < 1 || kv < 1 || g < 1 ||
+                           int kv, int g, int dh, int causal, int q_offset,
+                           float scale, void* stream) {
+  if (b < 1 || sq < 1 || skv < 1 || kv < 1 || g < 1 || q_offset < 0 ||
       (long long)b * kv > 2147483647LL || skv > 2147483647 - kKeyPad ||
       key_pad(skv) / kSplitKeys > 65535)
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (dh) {
     case 32:
-      return launch<32>(q, k, v, o, scratch, b, sq, skv, kv, g, causal, scale,
-                        st);
+      return launch<32>(q, k, v, o, scratch, b, sq, skv, kv, g, causal,
+                        q_offset, scale, st);
     case 64:
-      return launch<64>(q, k, v, o, scratch, b, sq, skv, kv, g, causal, scale,
-                        st);
+      return launch<64>(q, k, v, o, scratch, b, sq, skv, kv, g, causal,
+                        q_offset, scale, st);
     case 128:
       return launch<128>(q, k, v, o, scratch, b, sq, skv, kv, g, causal,
-                         scale, st);
+                         q_offset, scale, st);
     default:
       return (int)cudaErrorInvalidValue;
   }

@@ -3,7 +3,8 @@
 //   o[b, i, h, g] = sum_j softmax_j(q[b, i, h, g] . k[b, j, h] * dh^-0.5) v[b, j, h]
 //   q: [B, Sq, KV, G, dh], k, v: [B, Skv, KV, dh], o like q, all bfloat16,
 //   dh in {32, 64, 128}
-// over the keys j <= i (causal, top-left aligned) or all keys.
+// over the keys j <= i + q_offset (causal: query i at position q_offset + i,
+// top-left aligned at q_offset = 0) or all keys.
 //
 // Replaces the TPU kernel of the JAX package
 //   repro/kernels/flash_attention.py::flash_attention_fwd (body
@@ -469,7 +470,8 @@ __device__ __forceinline__ void produce(const CUtensorMap* tm_k,
 template <int DH>
 __device__ __forceinline__ void consume(
     const __nv_bfloat16* __restrict__ q, __nv_bfloat16* __restrict__ o,
-    int sq, int skv, int kv, int g, int causal, float scale_log2, int b,
+    int sq, int skv, int kv, int g, int causal, int q_offset,
+    float scale_log2, int b,
     int h, int64_t rows, int64_t w0, int n_tiles, uint32_t q_wg,
     uint32_t kv_s, uint32_t full, uint32_t empty, int bar_id) {
   using T = Tile<DH>;
@@ -511,13 +513,18 @@ __device__ __forceinline__ void consume(
     const int64_t row = w0 + 16 * warp + grp + 8 * i;
     pos[i] = (int)((row < rows ? row : rows - 1) / g);
   }
+  int qpos[2];                     // their query positions, for the mask
+#pragma unroll
+  for (int i = 0; i < 2; ++i) qpos[i] = q_offset + pos[i];
   // tiles this warpgroup computes (up to its last row's diagonal), and how
   // many of them come first and need no mask (below its first row's
-  // diagonal and inside Skv)
+  // diagonal and inside Skv); every diagonal is shifted by q_offset
   int n_work = live ? n_tiles : 0;
-  if (live && causal && last_pos / kBN + 1 < n_work)
-    n_work = last_pos / kBN + 1;
-  const int kv_plain = causal && first_pos + 1 < skv ? first_pos + 1 : skv;
+  if (live && causal && (q_offset + last_pos) / kBN + 1 < n_work)
+    n_work = (q_offset + last_pos) / kBN + 1;
+  const int kv_plain = causal && q_offset + first_pos + 1 < skv
+                           ? q_offset + first_pos + 1
+                           : skv;
   const int n_plain = kv_plain / kBN < n_work ? kv_plain / kBN : n_work;
 
   float acc[DH / 2];
@@ -545,7 +552,7 @@ __device__ __forceinline__ void consume(
     wgmma_wait<1>();                                  // S done, P V running
     fence_regs(sc);
     float corr[2];
-    softmax_tile<EDGE>(sc, m, l, corr, scale_log2, t * kBN, tq, pos, skv,
+    softmax_tile<EDGE>(sc, m, l, corr, scale_log2, t * kBN, tq, qpos, skv,
                        causal);
     wgmma_wait<0>();
     fence_regs(acc);
@@ -569,7 +576,7 @@ __device__ __forceinline__ void consume(
     wgmma_wait<0>();
     fence_regs(sc);
     float corr[2];
-    softmax_tile<EDGE>(sc, m, l, corr, scale_log2, 0, tq, pos, skv, causal);
+    softmax_tile<EDGE>(sc, m, l, corr, scale_log2, 0, tq, qpos, skv, causal);
     split_p(sc, hi, lo);
   };
   using Plain = std::integral_constant<bool, false>;
@@ -625,7 +632,8 @@ flash_attention_wgmma_kernel(const __grid_constant__ CUtensorMap tm_k,
                              const __grid_constant__ CUtensorMap tm_v,
                              const __nv_bfloat16* __restrict__ q,
                              __nv_bfloat16* __restrict__ o, int sq, int skv,
-                             int kv, int g, int causal, float scale_log2) {
+                             int kv, int g, int causal, int q_offset,
+                             float scale_log2) {
   using T = Tile<DH>;
   extern __shared__ uint8_t smem_raw[];
   const uint32_t raw = smem_u32(smem_raw);
@@ -640,7 +648,8 @@ flash_attention_wgmma_kernel(const __grid_constant__ CUtensorMap tm_k,
   const int64_t r0 = (int64_t)(gridDim.y - 1 - blockIdx.y) * T::ROWS;
   const int64_t r_last = (r0 + T::ROWS < rows ? r0 + T::ROWS : rows) - 1;
   int kv_end = skv;
-  if (causal && (int)(r_last / g) + 1 < kv_end) kv_end = (int)(r_last / g) + 1;
+  if (causal && q_offset + (int)(r_last / g) + 1 < kv_end)
+    kv_end = q_offset + (int)(r_last / g) + 1;
   const int n_tiles = (kv_end + kBN - 1) / kBN;
   const int wg = threadIdx.x / 128;
 
@@ -661,9 +670,9 @@ flash_attention_wgmma_kernel(const __grid_constant__ CUtensorMap tm_k,
   } else {
     asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(
         T::CONSUMER_REGS));
-    consume<DH>(q, o, sq, skv, kv, g, causal, scale_log2, b, h, rows,
-                r0 + 64 * wg, n_tiles, q_s + 64 * wg * T::SW, kv_s, full,
-                empty, 1 + wg);
+    consume<DH>(q, o, sq, skv, kv, g, causal, q_offset, scale_log2, b, h,
+                rows, r0 + 64 * wg, n_tiles, q_s + 64 * wg * T::SW, kv_s,
+                full, empty, 1 + wg);
   }
 }
 
@@ -714,8 +723,8 @@ CUresult kv_map(EncodeTiled enc, CUtensorMap* map, const void* base, int b,
 
 template <int DH>
 int launch(const void* q, const void* k, const void* v, void* o, int b,
-           int sq, int skv, int kv, int g, int causal, float scale,
-           cudaStream_t stream) {
+           int sq, int skv, int kv, int g, int causal, int q_offset,
+           float scale, cudaStream_t stream) {
   using T = Tile<DH>;
   EncodeTiled enc = encoder();
   if (!enc) return (int)cudaErrorNotSupported;
@@ -735,7 +744,8 @@ int launch(const void* q, const void* k, const void* v, void* o, int b,
   const dim3 grid((unsigned)(b * kv), (unsigned)tiles);
   flash_attention_wgmma_kernel<DH><<<grid, T::THREADS, T::SMEM, stream>>>(
       tk, tv, static_cast<const __nv_bfloat16*>(q),
-      static_cast<__nv_bfloat16*>(o), sq, skv, kv, g, causal, scale * kLog2e);
+      static_cast<__nv_bfloat16*>(o), sq, skv, kv, g, causal, q_offset,
+      scale * kLog2e);
   return (int)cudaGetLastError();
 }
 
@@ -745,25 +755,30 @@ extern "C" {
 
 // Launch the bfloat16 attention forward on `stream`: q [b, sq, kv, g, dh],
 // k and v [b, skv, kv, dh], o like q, all contiguous bfloat16 with 16-byte
-// aligned bases; dh in {32, 64, 128}; `scale` multiplies the float32 logits.
+// aligned bases; dh in {32, 64, 128}; query row i sits at position
+// q_offset + i (q_offset >= 0; causal masks key j > q_offset + i); `scale`
+// multiplies the float32 logits.
 // Returns the cudaError_t of the launch (cudaErrorInvalidValue for sizes
 // the kernel does not take or a tensor map the driver refuses).
 int flash_attention_sm90_launch(const void* q, const void* k, const void* v,
                                 void* o, int b, int sq, int skv, int kv,
-                                int g, int dh, int causal, float scale,
-                                void* stream) {
-  if (b < 1 || sq < 1 || skv < 1 || kv < 1 || g < 1 ||
+                                int g, int dh, int causal, int q_offset,
+                                float scale, void* stream) {
+  if (b < 1 || sq < 1 || skv < 1 || kv < 1 || g < 1 || q_offset < 0 ||
       (long long)b * kv > 2147483647LL ||
       ((long long)sq * g + 127) / 128 > 65535)
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (dh) {
     case 32:
-      return launch<32>(q, k, v, o, b, sq, skv, kv, g, causal, scale, st);
+      return launch<32>(q, k, v, o, b, sq, skv, kv, g, causal, q_offset,
+                         scale, st);
     case 64:
-      return launch<64>(q, k, v, o, b, sq, skv, kv, g, causal, scale, st);
+      return launch<64>(q, k, v, o, b, sq, skv, kv, g, causal, q_offset,
+                         scale, st);
     case 128:
-      return launch<128>(q, k, v, o, b, sq, skv, kv, g, causal, scale, st);
+      return launch<128>(q, k, v, o, b, sq, skv, kv, g, causal, q_offset,
+                         scale, st);
     default:
       return (int)cudaErrorInvalidValue;
   }

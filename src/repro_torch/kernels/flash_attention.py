@@ -14,7 +14,11 @@ chosen by dtype:
 
 One call computes causal (or full) grouped-query attention in the JAX
 layout: ``q`` [B, Sq, KV, G, dh], ``k``/``v`` [B, Skv, KV, dh], dh in
-{32, 64, 128} -> [B, Sq, KV, G, dh] in q's dtype.  The wrapper checks
+{32, 64, 128} -> [B, Sq, KV, G, dh] in q's dtype.  ``q_offset`` places
+query row i at position q_offset + i, so a causal call masks the keys
+j > q_offset + i: a context-parallel shard of the q rows (rows [r·Sq/P,
+(r+1)·Sq/P) with all of k and v, models/layers.py) passes q_offset =
+r·Sq/P and computes exactly those rows of the unsplit call.  The wrapper checks
 device, dtype, shape, contiguity and 16-byte alignment, allocates the
 output (and, for float32, the split K/V's scratch, :func:`f32_scratch_shape`),
 launches on PyTorch's current stream and raises if the launch fails;
@@ -80,16 +84,18 @@ def _launcher(source: str):
     ``csrc/<source>.cu``; the float32 one takes the scratch after ``o``."""
     fn = getattr(_build.load(source), f"{source}_launch")
     n_ptr = 5 if source == "flash_attention" else 4
-    fn.argtypes = ([ctypes.c_void_p] * n_ptr + [ctypes.c_int] * 7
+    fn.argtypes = ([ctypes.c_void_p] * n_ptr + [ctypes.c_int] * 8
                    + [ctypes.c_float, ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return fn
 
 
 def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                         causal: bool = True) -> torch.Tensor:
+                         causal: bool = True,
+                         q_offset: int = 0) -> torch.Tensor:
     """The attention forward on the card; contract of
-    ``kernels/ref.flash_attention_ref`` without its extra masks."""
+    ``kernels/ref.flash_attention_ref`` with its ``q_offset`` and without
+    its other masks (``window``, ``kv_valid_len``)."""
     if not all(isinstance(x, torch.Tensor) and x.is_cuda for x in (q, k, v)):
         raise ValueError("the CUDA attention kernel takes CUDA tensors; "
                          "kernels/ops.py routes CPU tensors to the plain "
@@ -121,6 +127,8 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if min(b, sq, skv, kv, g) < 1 or not grid_ok:
         raise ValueError(f"sizes out of range: B={b}, Sq={sq}, Skv={skv}, "
                          f"KV={kv}, G={g}")
+    if not 0 <= q_offset < 2 ** 31 - sq:
+        raise ValueError(f"q_offset must be >= 0, got {q_offset}")
     out = torch.empty_like(q)
     aligned = (q, k, v, out) if wgmma else (q, out)
     if any(x.data_ptr() % 16 for x in aligned):
@@ -134,7 +142,7 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                               dtype=torch.float32, device=q.device)
         ptrs.append(scratch.data_ptr())
     err = _launcher(source)(
-        *ptrs, b, sq, skv, kv, g, dh, int(causal), dh ** -0.5,
+        *ptrs, b, sq, skv, kv, g, dh, int(causal), int(q_offset), dh ** -0.5,
         torch._C._cuda_getCurrentRawStream(q.get_device()))
     if err != 0:
         raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")

@@ -93,9 +93,10 @@ def _needs_grad(*xs) -> bool:
     return torch.is_grad_enabled() and any(x.requires_grad for x in xs)
 
 
-def _flash_forward(q, k, v, causal: bool):
-    fn = _flash.flash_attention_cuda if q.is_cuda else _ref.flash_attention_ref
-    return fn(q, k, v, causal)
+def _flash_forward(q, k, v, causal: bool, q_offset: int = 0):
+    if q.is_cuda:
+        return _flash.flash_attention_cuda(q, k, v, causal, q_offset)
+    return _ref.flash_attention_ref(q, k, v, causal, q_offset=q_offset)
 
 
 def _rg_forward(a, b):
@@ -109,19 +110,20 @@ class FlashAttentionFn(torch.autograd.Function):
     no score matrix is kept between the passes)."""
 
     @staticmethod
-    def forward(ctx, q, k, v, causal: bool):
-        ctx.causal = causal
+    def forward(ctx, q, k, v, causal: bool, q_offset: int = 0):
+        ctx.causal, ctx.q_offset = causal, q_offset
         ctx.save_for_backward(q, k, v)
-        return _flash_forward(q, k, v, causal)
+        return _flash_forward(q, k, v, causal, q_offset)
 
     @staticmethod
     def backward(ctx, g):
         q, k, v = ctx.saved_tensors
         with torch.enable_grad():
             q_, k_, v_ = (x.detach().requires_grad_() for x in (q, k, v))
-            out = _ref.flash_attention_ref(q_, k_, v_, ctx.causal)
+            out = _ref.flash_attention_ref(q_, k_, v_, ctx.causal,
+                                           q_offset=ctx.q_offset)
             dq, dk, dv = torch.autograd.grad(out, (q_, k_, v_), g)
-        return dq, dk, dv, None
+        return dq, dk, dv, None, None
 
 
 class RgLruScanFn(torch.autograd.Function):
@@ -148,13 +150,14 @@ class RgLruScanFn(torch.autograd.Function):
         return da, g
 
 
-def flash_attention(q, k, v, causal: bool = True):
+def flash_attention(q, k, v, causal: bool = True, q_offset: int = 0):
     """Causal (or full) GQA attention: ``q`` [B, Sq, KV, G, dh], ``k``/``v``
-    [B, Skv, KV, dh] -> [B, Sq, KV, G, dh] in q's dtype; through
-    :class:`FlashAttentionFn` when a gradient is wanted."""
+    [B, Skv, KV, dh] -> [B, Sq, KV, G, dh] in q's dtype, query row i at
+    position ``q_offset`` + i (a causal call masks keys j > q_offset + i);
+    through :class:`FlashAttentionFn` when a gradient is wanted."""
     if _needs_grad(q, k, v):
-        return FlashAttentionFn.apply(q, k, v, causal)
-    return _flash_forward(q, k, v, causal)
+        return FlashAttentionFn.apply(q, k, v, causal, q_offset)
+    return _flash_forward(q, k, v, causal, q_offset)
 
 
 def rg_lru_scan(a, b):

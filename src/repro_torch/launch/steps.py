@@ -10,17 +10,25 @@ new ones are returned, as in the JAX package.  With ``cfg.remat`` the
 model recomputes each layer in the backward pass
 (``torch.utils.checkpoint``), as JAX's ``jax.checkpoint`` does.
 
-The JAX module's ``build_cell`` (abstract arguments and mesh shardings for
-the dry run) has no counterpart yet: the port runs on one card.
+``build_cell(arch, shape, mesh)`` assembles one dry-run cell (an
+architecture at one of ``configs/shapes.SHAPES`` on a mesh): the step
+function, its arguments on the ``meta`` device, and the spec trees of the
+parameters, the optimizer state, the batch and the cache
+(distributed/sharding.py), with the JAX package's FSDP rule (on above
+3·10⁹ parameters) and AdamW default.  launch/dryrun.py runs one rank of
+it.
 """
 
 from __future__ import annotations
 
-from typing import Callable
+import dataclasses
+from typing import Any, Callable
 
 import torch
 
-from repro_torch.models.registry import ModelApi
+from repro_torch.configs.shapes import SHAPES
+from repro_torch.distributed import sharding
+from repro_torch.models.registry import ModelApi, build
 from repro_torch.optim.sgd import OptimizerConfig
 from repro_torch.utils.trees import tree_leaves, tree_map, tree_unflatten
 
@@ -56,12 +64,74 @@ def make_train_step(api: ModelApi, opt_cfg: OptimizerConfig):
 
 
 def make_prefill_step(api: ModelApi, max_len: int):
-    def prefill_step(params, batch):
-        return api.prefill(params, batch, max_len=max_len)
+    def prefill_step(params, batch, mp=None):
+        return api.prefill(params, batch, max_len=max_len, mp=mp)
     return prefill_step
 
 
 def make_decode_step(api: ModelApi):
-    def decode_step(params, cache, tokens, pos):
-        return api.decode_step(params, cache, tokens, pos)
+    def decode_step(params, cache, tokens, pos, mp=None):
+        return api.decode_step(params, cache, tokens, pos, mp=mp)
     return decode_step
+
+
+@dataclasses.dataclass
+class LoweredSpec:
+    """One (arch x shape x mesh) cell: ``fn(*abstract_args)`` is its step
+    (``mp=`` a ``layers.ModelParallel`` for one rank), the arguments whole
+    on the ``meta`` device; the spec trees mirror the parameters, the
+    optimizer state (train cells), the batch and the cache (decode
+    cells)."""
+    fn: Callable
+    abstract_args: tuple
+    param_specs: Any
+    opt_specs: Any
+    batch_specs: Any
+    cache_specs: Any
+    static: dict
+
+
+def build_cell(arch: str, shape: str, mesh, fsdp: bool | None = None,
+               opt_cfg: OptimizerConfig | None = None,
+               reduced: bool = False) -> LoweredSpec:
+    """Assemble fn + abstract args + specs for one dry-run cell; ``mesh``
+    a ``DeviceMesh`` or its axis sizes {name: size}."""
+    api = build(arch, reduced=reduced)
+    cell = SHAPES[shape]
+    cfg = api.cfg
+    if fsdp is None:
+        # FSDP on for the big archs (params do not fit replicated-over-data)
+        total, _ = api.param_counts()
+        fsdp = total > 3e9
+    if opt_cfg is None:
+        opt_cfg = OptimizerConfig(name="adamw", lr=3e-4, weight_decay=0.1)
+
+    pshapes = api.param_shapes()
+    pspecs = sharding.param_specs(pshapes, cfg, mesh, fsdp=fsdp)
+    in_specs = api.input_specs(shape)
+    bspecs = sharding.batch_specs(in_specs, mesh)
+
+    if cell.kind == "train":
+        fn, opt = make_train_step(api, opt_cfg)
+        oshapes = opt.init(pshapes)
+        return LoweredSpec(
+            fn=fn, abstract_args=(pshapes, oshapes, in_specs),
+            param_specs=pspecs, opt_specs=sharding.opt_specs(oshapes, pspecs),
+            batch_specs=bspecs, cache_specs=None,
+            static={"fsdp": fsdp, "opt": opt_cfg.name})
+
+    if cell.kind == "prefill":
+        return LoweredSpec(
+            fn=make_prefill_step(api, max_len=cell.seq_len),
+            abstract_args=(pshapes, in_specs), param_specs=pspecs,
+            opt_specs=None, batch_specs=bspecs, cache_specs=None,
+            static={"fsdp": fsdp})
+
+    cshapes = api.decode_state_specs(shape)
+    return LoweredSpec(
+        fn=make_decode_step(api),
+        abstract_args=(pshapes, cshapes, in_specs["tokens"],
+                       cell.seq_len - 1),
+        param_specs=pspecs, opt_specs=None, batch_specs=bspecs,
+        cache_specs=sharding.cache_specs(cshapes, cfg, mesh),
+        static={"fsdp": fsdp})

@@ -22,6 +22,12 @@ in place and, as the JAX package does, recomputes each layer's cross K and
 V from ``enc_out`` every step.  With ``cfg.remat`` and grad mode on,
 ``forward`` runs each encoder and decoder layer under
 ``torch.utils.checkpoint``.
+
+With ``mp`` (a ``layers.ModelParallel``) the blocks take the same routes as
+the transformer's (models/layers.py): head-parallel or gathered self- and
+cross-attention, the TP MLP, the vocab-parallel embedding and logits, and
+the self-attention cache's sequence over ``model``; ``enc_out`` holds the
+rank's batch rows.
 """
 
 from __future__ import annotations
@@ -29,13 +35,15 @@ from __future__ import annotations
 import torch
 from torch.utils.checkpoint import checkpoint
 
-from repro_torch.models.layers import (LMConfig, attention_apply, dense_init,
+from repro_torch.models.layers import (LMConfig, _sub, attention_apply,
+                                       constrain_batch, dense_init,
                                        embed_apply, embed_init,
                                        init_attention, init_kv_cache,
                                        init_mlp, mlp_apply, rms_norm,
-                                       softmax_xent)
-from repro_torch.models.transformer import (_layer, _unstack, init_stacked,
-                                            remat_on)
+                                       softmax_xent, vocab_logits)
+from repro_torch.models.transformer import (_layer, _unstack,
+                                            cache_positions, init_stacked,
+                                            remat_on, whole)
 
 
 def _zeros(gen: torch.Generator, cfg: LMConfig) -> torch.Tensor:
@@ -55,127 +63,151 @@ def _init_dec_layer(gen: torch.Generator, cfg: LMConfig) -> dict:
             "mlp_norm": _zeros(gen, cfg), "mlp": init_mlp(gen, cfg)}
 
 
-def init(generator: torch.Generator, cfg: LMConfig) -> dict:
-    """Random parameters drawn from ``generator``, on its device."""
+def init(generator: torch.Generator, cfg: LMConfig, keep=whole) -> dict:
+    """Random parameters drawn from ``generator``, on its device, each
+    subtree through ``keep`` as it is drawn (``transformer.init``)."""
     return {
-        "enc_layers": init_stacked(lambda: _init_enc_layer(generator, cfg),
-                                   cfg.n_enc_layers),
-        "dec_layers": init_stacked(lambda: _init_dec_layer(generator, cfg),
-                                   cfg.n_layers),
-        "embed": {"tok": embed_init(generator, cfg.vocab, cfg.d_model,
-                                    cfg.param_dtype)},
-        "unembed": dense_init(generator, cfg.d_model, cfg.vocab,
-                              cfg.param_dtype),
-        "enc_norm": _zeros(generator, cfg),
-        "dec_norm": _zeros(generator, cfg),
+        "enc_layers": init_stacked(
+            lambda: keep("enc_layers", _init_enc_layer(generator, cfg), 1),
+            cfg.n_enc_layers),
+        "dec_layers": init_stacked(
+            lambda: keep("dec_layers", _init_dec_layer(generator, cfg), 1),
+            cfg.n_layers),
+        "embed": keep("embed", {"tok": embed_init(
+            generator, cfg.vocab, cfg.d_model, cfg.param_dtype)}),
+        "unembed": keep("unembed", dense_init(
+            generator, cfg.d_model, cfg.vocab, cfg.param_dtype)),
+        "enc_norm": keep("enc_norm", _zeros(generator, cfg)),
+        "dec_norm": keep("dec_norm", _zeros(generator, cfg)),
     }
 
 
-def _enc_block(pl: dict, x: torch.Tensor, positions, cfg: LMConfig):
+def _enc_block(pl: dict, x: torch.Tensor, positions, cfg: LMConfig,
+               mp=None):
     h, _ = attention_apply(pl["attn"], rms_norm(x, pl["attn_norm"],
                                                 cfg.norm_eps),
-                           cfg, positions, causal=False)
+                           cfg, positions, causal=False, mp=_sub(mp, "attn"))
     x = x + h
-    return x + mlp_apply(pl["mlp"], rms_norm(x, pl["mlp_norm"], cfg.norm_eps),
-                         cfg)
+    x = x + mlp_apply(pl["mlp"], rms_norm(x, pl["mlp_norm"], cfg.norm_eps),
+                      cfg, mp=_sub(mp, "mlp"))
+    return constrain_batch(x, mp)
 
 
-def encode(params: dict, frames: torch.Tensor, cfg: LMConfig):
+def _stack_mp(mp, key: str):
+    return None if mp is None else mp.sub(key).layer()
+
+
+def encode(params: dict, frames: torch.Tensor, cfg: LMConfig, mp=None):
     """frames [B, S_enc, d_model] (the frontend stub's output) -> the
     normalised encoder output in ``compute_dtype``."""
     x = frames.to(cfg.compute_dtype)
     positions = torch.arange(x.shape[1], device=x.device)
     remat = remat_on(cfg)
+    mpl = _stack_mp(mp, "enc_layers")
     for pl in _unstack(params["enc_layers"], cfg.n_enc_layers):
         if remat:
-            x = checkpoint(_enc_block, pl, x, positions, cfg,
+            x = checkpoint(_enc_block, pl, x, positions, cfg, mpl,
                            use_reentrant=False)
         else:
-            x = _enc_block(pl, x, positions, cfg)
+            x = _enc_block(pl, x, positions, cfg, mpl)
     return rms_norm(x, params["enc_norm"], cfg.norm_eps)
 
 
 def _dec_block(pl: dict, x: torch.Tensor, enc_out: torch.Tensor,
-               cfg: LMConfig, positions, kv_cache=None, cache_pos=None):
+               cfg: LMConfig, positions, kv_cache=None, cache_pos=None,
+               mp=None):
     h, kv_cache = attention_apply(
         pl["self_attn"], rms_norm(x, pl["self_norm"], cfg.norm_eps), cfg,
-        positions, kv_cache=kv_cache, cache_pos=cache_pos)
+        positions, kv_cache=kv_cache, cache_pos=cache_pos,
+        mp=_sub(mp, "self_attn"))
     x = x + h
     h, _ = attention_apply(
         pl["cross_attn"], rms_norm(x, pl["cross_norm"], cfg.norm_eps), cfg,
-        positions, cross_kv=enc_out)
+        positions, cross_kv=enc_out, mp=_sub(mp, "cross_attn"))
     x = x + h
     x = x + mlp_apply(pl["mlp"], rms_norm(x, pl["mlp_norm"], cfg.norm_eps),
-                      cfg)
-    return x, kv_cache
+                      cfg, mp=_sub(mp, "mlp"))
+    return constrain_batch(x, mp), kv_cache
 
 
-def _train_dec_block(pl, x, enc_out, positions, cfg):
-    return _dec_block(pl, x, enc_out, cfg, positions)[0]
+def _train_dec_block(pl, x, enc_out, positions, cfg, mp=None):
+    return _dec_block(pl, x, enc_out, cfg, positions, mp=mp)[0]
 
 
-def _logits(params: dict, x: torch.Tensor, cfg: LMConfig) -> torch.Tensor:
+def _logits(params: dict, x: torch.Tensor, cfg: LMConfig,
+            mp=None) -> torch.Tensor:
     x = rms_norm(x, params["dec_norm"], cfg.norm_eps)
+    if mp is not None:
+        return vocab_logits(x, params, "unembed", 1, cfg, mp)
     return x @ params["unembed"].to(cfg.compute_dtype)
 
 
-def forward(params: dict, batch: dict, cfg: LMConfig):
+def forward(params: dict, batch: dict, cfg: LMConfig, mp=None):
     """Encoder over ``frames``, decoder over ``tokens``: (logits [B, S_dec,
     V], aux = 0), the formulation of the JAX package's ``loss_fn``."""
-    enc_out = encode(params, batch["frames"], cfg)
-    x = embed_apply(params["embed"], batch["tokens"], cfg)
+    enc_out = encode(params, batch["frames"], cfg, mp)
+    x = embed_apply(params["embed"], batch["tokens"], cfg,
+                    mp=_sub(mp, "embed"))
     positions = torch.arange(x.shape[1], device=x.device)
     remat = remat_on(cfg)
+    mpl = _stack_mp(mp, "dec_layers")
     for pl in _unstack(params["dec_layers"], cfg.n_layers):
         if remat:
             x = checkpoint(_train_dec_block, pl, x, enc_out, positions, cfg,
-                           use_reentrant=False)
+                           mpl, use_reentrant=False)
         else:
-            x = _train_dec_block(pl, x, enc_out, positions, cfg)
-    return _logits(params, x, cfg), torch.zeros((), device=x.device)
+            x = _train_dec_block(pl, x, enc_out, positions, cfg, mpl)
+    return _logits(params, x, cfg, mp), torch.zeros((), device=x.device)
 
 
-def loss_fn(params: dict, batch: dict, cfg: LMConfig) -> torch.Tensor:
+def loss_fn(params: dict, batch: dict, cfg: LMConfig,
+            mp=None) -> torch.Tensor:
     """Next-token cross-entropy of the decoder's :func:`forward`."""
-    logits, _ = forward(params, batch, cfg)
+    logits, _ = forward(params, batch, cfg, mp)
     return softmax_xent(logits[:, :-1], batch["tokens"][:, 1:])
 
 
 def prefill(params: dict, batch: dict, cfg: LMConfig,
-            max_len: int | None = None):
+            max_len: int | None = None, mp=None):
     """Encodes the frames and runs the decoder over the prompt tokens,
     building its self-attention cache; returns (last_logits [B, 1, V],
     {"self", "enc_out"}, pos = S_dec)."""
-    enc_out = encode(params, batch["frames"], cfg)
-    x = embed_apply(params["embed"], batch["tokens"], cfg)
+    enc_out = encode(params, batch["frames"], cfg, mp)
+    x = embed_apply(params["embed"], batch["tokens"], cfg,
+                    mp=_sub(mp, "embed"))
     b, s, _ = x.shape
     max_len = max_len or s
     if max_len < s:
         raise ValueError(f"max_len {max_len} is shorter than the prompt {s}")
     positions = torch.arange(s, device=x.device)
-    cache = init_kv_cache(cfg, b, max_len, layers_dim=cfg.n_layers,
-                          device=x.device)
+    cache = init_kv_cache(cfg, b, cache_positions(max_len, mp),
+                          layers_dim=cfg.n_layers, device=x.device)
+    mpl = _stack_mp(mp, "dec_layers")
     for i in range(cfg.n_layers):
         layer_cache = {"k": cache["k"][i], "v": cache["v"][i]}
         x, _ = _dec_block(_layer(params["dec_layers"], i), x, enc_out, cfg,
-                          positions, kv_cache=layer_cache, cache_pos=0)
-    return (_logits(params, x[:, -1:], cfg),
+                          positions, kv_cache=layer_cache, cache_pos=0,
+                          mp=mpl)
+    return (_logits(params, x[:, -1:], cfg, mp),
             {"self": cache, "enc_out": enc_out}, s)
 
 
 def decode_step(params: dict, cache: dict, tokens: torch.Tensor, pos: int,
-                cfg: LMConfig):
+                cfg: LMConfig, mp=None):
     """One decoder token: tokens [B] at position ``pos`` -> (logits [B, 1,
     V], cache); the self-attention cache is written in place."""
     self_cache = cache["self"]
-    if pos >= self_cache["k"].shape[2]:
-        raise ValueError(f"the cache holds {self_cache['k'].shape[2]} "
-                         f"positions; decode at position {pos}")
-    x = embed_apply(params["embed"], tokens[:, None], cfg)
+    held = self_cache["k"].shape[2] * (1 if mp is None else mp.m)
+    if pos >= held:
+        raise ValueError(f"the cache holds {held} positions; decode at "
+                         f"position {pos}")
+    x = embed_apply(params["embed"], tokens[:, None], cfg,
+                    mp=_sub(mp, "embed"))
     positions = torch.full((1,), pos, dtype=torch.int32, device=x.device)
+    mpl = _stack_mp(mp, "dec_layers")
     for i in range(cfg.n_layers):
         layer_cache = {"k": self_cache["k"][i], "v": self_cache["v"][i]}
         x, _ = _dec_block(_layer(params["dec_layers"], i), x,
                           cache["enc_out"], cfg, positions,
-                          kv_cache=layer_cache, cache_pos=pos)
-    return _logits(params, x, cfg), cache
+                          kv_cache=layer_cache, cache_pos=pos, mp=mpl)
+    return _logits(params, x, cfg, mp), cache

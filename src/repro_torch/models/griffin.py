@@ -33,6 +33,13 @@ Decode carries (h, conv_buf) per recurrent layer and a ring KV cache of
 position ``pos``).  The ring caches are written in place (the JAX functions
 return updated copies) and returned; the recurrent states are returned as
 new tensors.
+
+With ``mp`` (a ``layers.ModelParallel``) every entry point gathers each
+leaf the rank holds a block of before using it (the group's leaves as
+each group runs, the rest at the entry), as GSPMD would reshard them, and
+runs the one-process code on the rank's batch rows; the states hold that
+batch whole over ``model`` (``cache_specs`` splits their last dim, which
+this route does not consume).
 """
 
 from __future__ import annotations
@@ -44,11 +51,12 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.kernels import ops
 from repro_torch.kernels.ref import NEG_LOGIT
 from repro_torch.models.layers import (LMConfig, _flash_ok, apply_rope,
-                                       dense_init, embed_apply, embed_init,
+                                       constrain_batch, dense_init,
+                                       embed_apply, embed_init,
                                        flash_attention, rms_norm,
                                        softmax_xent)
 from repro_torch.models.transformer import (_unstack, init_stacked,
-                                            remat_on)
+                                            remat_on, whole)
 
 GROUP = ("rec", "rec", "attn")
 C_SCALE = 8.0          # the paper's c constant
@@ -256,18 +264,23 @@ def _init_group(gen: torch.Generator, cfg: LMConfig) -> dict:
             "mlp2": init_mlp_block(gen, cfg)}
 
 
-def init(generator: torch.Generator, cfg: LMConfig) -> dict:
+def init(generator: torch.Generator, cfg: LMConfig, keep=whole) -> dict:
     """Random parameters drawn from ``generator``, on its device.  Each
     group is drawn and copied into the stacked [G] leaves at once, so at
-    most one group's parameters exist twice."""
+    most one group's parameters exist twice; each subtree goes through
+    ``keep`` as it is drawn (``transformer.init``)."""
     G, tail = _layout(cfg)
-    p = {"embed": {"tok": embed_init(generator, cfg.vocab, cfg.d_model,
-                                     cfg.param_dtype)},
-         "groups": init_stacked(lambda: _init_group(generator, cfg), G),
-         "final_norm": _zeros(cfg, cfg.d_model, generator)}
+    p = {"embed": keep("embed", {"tok": embed_init(
+             generator, cfg.vocab, cfg.d_model, cfg.param_dtype)}),
+         "groups": init_stacked(
+             lambda: keep("groups", _init_group(generator, cfg), 1), G),
+         "final_norm": keep("final_norm", _zeros(cfg, cfg.d_model,
+                                                 generator))}
     for t in range(tail):
-        p[f"tail_rec{t}"] = init_recurrent_block(generator, cfg)
-        p[f"tail_mlp{t}"] = init_mlp_block(generator, cfg)
+        p[f"tail_rec{t}"] = keep(f"tail_rec{t}",
+                                 init_recurrent_block(generator, cfg))
+        p[f"tail_mlp{t}"] = keep(f"tail_mlp{t}",
+                                 init_mlp_block(generator, cfg))
     return p
 
 
@@ -308,16 +321,29 @@ def _group_apply(gp: dict, x: torch.Tensor, st0, st1, cache, positions,
     return mlp_block_apply(gp["mlp2"], x, cfg), ns0, ns1
 
 
+def _gathered(params: dict, mp) -> dict:
+    """The parameters with every leaf outside the stacked ``groups``
+    gathered whole (``mp`` None: ``params`` itself); the groups are
+    gathered one at a time by :func:`_stack_forward`."""
+    if mp is None:
+        return params
+    return {k: v if k == "groups" else mp.sub(k).gather_tree(v)
+            for k, v in params.items()}
+
+
 def _stack_forward(params: dict, x: torch.Tensor, cfg: LMConfig,
                    states: dict, positions, cache_pos=None,
-                   decode: bool = False, want_cache: bool = False):
+                   decode: bool = False, want_cache: bool = False, mp=None):
     """The layer stack; returns (x, new_states).  The ring caches of
     ``states`` are written in place when ``decode`` or ``want_cache``."""
     G, tail = _layout(cfg)
     rec_new = {name: tuple(torch.empty_like(t) for t in states[name])
                for name in ("rec0", "rec1")}
     remat = remat_on(cfg) and not (decode or want_cache)
+    mpg = None if mp is None else mp.sub("groups").layer()
     for g, gp in enumerate(_unstack(params["groups"], G)):
+        if mpg is not None:
+            gp = mpg.gather_tree(gp)
         cache = ({n: t[g] for n, t in states["attn"].items()}
                  if decode or want_cache else None)
         args = (gp, x, tuple(t[g] for t in states["rec0"]),
@@ -328,6 +354,7 @@ def _stack_forward(params: dict, x: torch.Tensor, cfg: LMConfig,
                                      use_reentrant=False)
         else:
             x, ns0, ns1 = _group_apply(*args)
+        x = constrain_batch(x, mp)
         for name, ns in (("rec0", ns0), ("rec1", ns1)):
             for dst, src in zip(rec_new[name], ns):
                 dst[g] = src
@@ -346,42 +373,46 @@ def _unembed(params: dict, x: torch.Tensor, cfg: LMConfig) -> torch.Tensor:
     return x @ params["embed"]["tok"].to(cfg.compute_dtype).T
 
 
-def forward(params: dict, batch: dict, cfg: LMConfig):
+def forward(params: dict, batch: dict, cfg: LMConfig, mp=None):
     """Full-sequence forward from zero states: (logits [B, S, V], aux = 0),
     the formulation of the JAX package's ``loss_fn``."""
+    params = _gathered(params, mp)
     x = embed_apply(params["embed"], batch["tokens"], cfg)
     b, s = x.shape[:2]
     x, _ = _stack_forward(params, x, cfg, init_states(cfg, b, x.device),
-                          torch.arange(s, device=x.device))
+                          torch.arange(s, device=x.device), mp=mp)
     return _unembed(params, x, cfg), torch.zeros((), device=x.device)
 
 
-def loss_fn(params: dict, batch: dict, cfg: LMConfig) -> torch.Tensor:
+def loss_fn(params: dict, batch: dict, cfg: LMConfig,
+            mp=None) -> torch.Tensor:
     """Next-token cross-entropy of :func:`forward`."""
-    logits, _ = forward(params, batch, cfg)
+    logits, _ = forward(params, batch, cfg, mp)
     return softmax_xent(logits[:, :-1], batch["tokens"][:, 1:])
 
 
 def prefill(params: dict, batch: dict, cfg: LMConfig,
-            max_len: int | None = None):
+            max_len: int | None = None, mp=None):
     """Runs the prompt and builds the decode states; returns (last_logits
     [B, 1, V], states, pos = S).  ``max_len`` is accepted for the
     registry's signature: the states do not grow with the sequence."""
+    params = _gathered(params, mp)
     x = embed_apply(params["embed"], batch["tokens"], cfg)
     b, s = x.shape[:2]
     x, states = _stack_forward(params, x, cfg,
                                init_states(cfg, b, x.device),
                                torch.arange(s, device=x.device),
-                               want_cache=True)
+                               want_cache=True, mp=mp)
     return _unembed(params, x[:, -1:], cfg), states, s
 
 
 def decode_step(params: dict, states: dict, tokens: torch.Tensor, pos: int,
-                cfg: LMConfig):
+                cfg: LMConfig, mp=None):
     """One decode step: tokens [B] at absolute position ``pos`` (an int) ->
     (logits [B, 1, V], states); the ring caches are written in place."""
+    params = _gathered(params, mp)
     x = embed_apply(params["embed"], tokens[:, None], cfg)
     positions = torch.full((1,), pos, dtype=torch.int32, device=x.device)
     x, states = _stack_forward(params, x, cfg, states, positions,
-                               cache_pos=pos, decode=True)
+                               cache_pos=pos, decode=True, mp=mp)
     return _unembed(params, x, cfg), states

@@ -6,12 +6,53 @@ cross-entropy).
 Functional, as in the JAX package: ``init_*`` build dicts of tensors,
 ``*_apply`` consume them, and weights keep the JAX layout ``[d_in, d_out]``
 so ``x @ w`` reads as there.  ``LMConfig``'s dtypes are torch dtypes.
-``attn_impl`` and ``shard_attn_batch`` are kept as fields but do not route:
-attention over 1024 or more tokens goes through ``kernels/ops.flash_attention``
-(the CUDA kernel on a CUDA tensor, its plain version on a CPU one) when the
-kernel takes its head width, else through the plain blockwise
-:func:`flash_attention`.  Not ported: ``constrain_batch`` and
-``_context_parallel_flash`` (mesh sharding, no meaning on one card).
+``attn_impl`` is kept as a field but does not route: attention over 1024
+or more tokens goes through ``kernels/ops.flash_attention`` (the CUDA
+kernel on a CUDA tensor, its plain version on a CPU one) when the kernel
+takes its head width, else through the plain blockwise
+:func:`flash_attention`.
+
+Model parallelism.  Every ``*_apply`` takes ``mp``, a :class:`ModelParallel`
+(the device mesh's axis sizes, this rank's coordinates, its process groups
+and the spec tree of the parameters the function gets), or None for one
+process, where it is the one-process code operation for operation.  With
+``mp`` the parameters are this rank's blocks (``distributed/sharding
+.shard_params``) and activations hold this rank's B / n_data rows of the
+batch (:func:`constrain_batch` checks it at every block boundary).  The
+routes, by leaf:
+
+  * column-parallel ``wq``/``wk``/``wv`` and ``w_gate``/``w_up`` (last dim
+    over ``model``) and row-parallel ``wo``/``w_down`` (their rows), the
+    block's output summed by ``all_reduce`` over ``model`` (in float32,
+    rounded once to the compute dtype) — attention only
+    when ``model`` divides the kv heads (then it divides the q heads, and
+    a rank's q heads sit over its kv heads);
+  * expert-parallel :func:`moe_apply`: the experts' E over ``model``, the
+    routing computed whole on every rank, each rank's experts' gated
+    outputs summed by ``all_reduce`` (the shared expert as a dense MLP);
+  * vocab-parallel :func:`embed_apply` (each rank looks up its vocab rows,
+    the others' tokens give zeros, summed by ``all_reduce``) and
+    :func:`vocab_logits` (the logits all-gathered along the vocab for the
+    caller), ``patch_proj`` column-parallel with its output all-gathered;
+  * context-parallel attention for ``cfg.shard_attn_batch`` (llava's 56 q
+    heads): a prefill over the blockwise route gives rank r the q rows
+    [r·S/P, (r+1)·S/P) with all of k and v, attending through
+    ``ops.flash_attention(..., q_offset=r·S/P)`` (the kernel on the card),
+    and all-gathers the block's output along the sequence;
+  * gather before use: a leaf whose spec splits a dim that the local
+    computation cannot consume is all-gathered first, as GSPMD would
+    reshard it — every ``data`` (FSDP) dim; the attention weights when
+    ``model`` does not divide the kv heads (smollm's 3 on 2 ranks), and
+    always on the context-parallel route; a block whose column and row
+    weights are not both split the same way.
+  * the KV cache follows ``cache_specs``: the sequence over ``model``
+    (:func:`init_kv_cache` of max_len / P positions a rank; max_len must be
+    a multiple of P).  A prefill writes its positions of every head's k and
+    v (all-gathered over the heads on the TP route); a decode step writes
+    the new token on the rank that owns its position and attends over each
+    rank's positions, combining the partial results as split-KV decoding
+    does: a max ``all_reduce`` of the local maxima, then a sum
+    ``all_reduce`` of the rescaled sums and one of the rescaled outputs.
 """
 
 from __future__ import annotations
@@ -23,6 +64,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.core.bandit import top_k
+from repro_torch.distributed import sharding
 from repro_torch.kernels import ops
 from repro_torch.kernels.flash_attention import HEAD_DIMS
 from repro_torch.kernels.ref import NEG_LOGIT, flash_attention_ref
@@ -81,6 +123,136 @@ class LMConfig:
     @property
     def q_per_kv(self) -> int:
         return self.n_heads // self.n_kv_heads
+
+
+# ---------------------------------------------------------------------------
+# model parallelism
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class ModelParallel:
+    """One rank of a device mesh, as the model functions see it: the mesh's
+    axis sizes and this rank's coordinates ({name: int}, mesh order), its
+    process group along each axis, the spec tree of the parameters the
+    callee is given (narrowed by :meth:`sub` and :meth:`layer` on the way
+    down), the batch rows an activation holds here (None: unchecked), and
+    the group over the batch axes when the batch is split over them (the
+    MoE layer routes over the whole batch through it)."""
+
+    sizes: dict
+    coords: dict
+    groups: dict
+    specs: Any = None
+    local_batch: int | None = None
+    batch_group: Any = None
+
+    @classmethod
+    def of(cls, mesh, specs, global_batch: int):
+        """This rank of ``mesh`` (a ``DeviceMesh``) for parameters of the
+        spec tree ``specs``; ``global_batch`` the batch the caller split
+        over the batch axes as ``sharding.batch_specs`` does (whole when
+        they do not divide it)."""
+        sizes = sharding.axis_sizes(mesh)
+        ba = sharding.batch_axes(sizes)
+        n = sharding.axis_size(sizes, ba)
+        split = global_batch > 1 and global_batch % n == 0
+        group = None
+        if split:
+            group = (mesh.get_group(ba[0]) if len(ba) == 1
+                     else mesh[ba]._flatten().get_group())
+        return cls(sizes, sharding.mesh_coords(mesh),
+                   {a: mesh.get_group(a) for a in sizes}, specs,
+                   global_batch // n if split else global_batch, group)
+
+    @property
+    def batch_block(self) -> int:
+        """This rank's block of the batch (0 when it is whole)."""
+        if self.batch_group is None:
+            return 0
+        return sharding.block_index(sharding.batch_axes(self.sizes),
+                                    self.coords, self.sizes)
+
+    @property
+    def m(self) -> int:
+        """Ranks along ``model``."""
+        return self.sizes.get("model", 1)
+
+    @property
+    def r(self) -> int:
+        """This rank's index along ``model``."""
+        return self.coords.get("model", 0)
+
+    def group(self, axis: str):
+        return self.groups[axis]
+
+    def sub(self, *keys) -> "ModelParallel":
+        """The same rank for the subtree ``params[keys[0]][keys[1]]...``."""
+        specs = self.specs
+        for k in keys:
+            specs = specs[k]
+        return dataclasses.replace(self, specs=specs)
+
+    def layer(self) -> "ModelParallel":
+        """The same rank for one slice of [L]-stacked leaves: every spec
+        without its leading entry."""
+        return dataclasses.replace(self, specs=sharding.map_with_path(
+            lambda _, s: sharding.Spec(s[1:]), self.specs))
+
+    def spec(self, key) -> tuple:
+        return self.specs[key]
+
+    def gather(self, x: torch.Tensor, spec, keep: dict | None = None):
+        """``x`` all-gathered along every dim its ``spec`` splits, but the
+        dims of ``keep`` ({dim: axis}, dims may count from the end) that
+        stay split over that axis."""
+        keep = {d % x.dim(): a for d, a in (keep or {}).items()}
+        for dim, axis in enumerate(spec):
+            if axis is None or keep.get(dim) == axis:
+                continue
+            if not isinstance(axis, str):
+                raise ValueError(f"cannot gather over the axes {axis}")
+            x = sharding.all_gather(x, dim, self.groups[axis])
+        return x
+
+    def leaf(self, p: dict, key, keep: dict | None = None) -> torch.Tensor:
+        """``p[key]`` gathered as :meth:`gather` says, by its spec."""
+        return self.gather(p[key], self.spec(key), keep)
+
+    def gather_tree(self, tree):
+        """Every leaf of ``tree`` (whose specs this is) gathered whole."""
+        specs = self.specs
+        return sharding.map_with_path(
+            lambda path, x: self.gather(x, sharding.spec_at(specs, path)),
+            tree)
+
+
+def _sub(mp: ModelParallel | None, *keys):
+    return None if mp is None else mp.sub(*keys)
+
+
+def _row_sum(y: torch.Tensor, mp: ModelParallel) -> torch.Tensor:
+    """The row-parallel partial outputs ``y`` summed over ``model`` in
+    float32 and rounded once to y's dtype, as one process's matmul rounds
+    its float32 sums (exact at one rank)."""
+    return sharding.all_reduce(y.float(), mp.group("model")).to(y.dtype)
+
+
+def _ax(spec, dim: int):
+    """The axis ``spec`` puts on ``dim`` (None for a replicated leaf)."""
+    return spec[dim] if spec else None
+
+
+def constrain_batch(x: torch.Tensor, mp: ModelParallel | None,
+                    batch_dim: int = 0) -> torch.Tensor:
+    """Check that an activation holds this rank's B / n_data rows of the
+    batch (the port of the JAX package's sharding constraint, applied at
+    every residual-block boundary): ``x`` itself, or ValueError.  A no-op
+    for one process (``mp`` None) or an unchecked batch."""
+    if mp is not None and mp.local_batch is not None \
+            and x.shape[batch_dim] != mp.local_batch:
+        raise ValueError(f"an activation holds {x.shape[batch_dim]} batch "
+                         f"rows; this rank's share is {mp.local_batch}")
+    return x
 
 
 # ---------------------------------------------------------------------------
@@ -200,10 +372,69 @@ def _mha_mask(q_pos, kv_pos, window: int | None, causal: bool = True):
     return m
 
 
+def _leaf(p: dict, key, mp: ModelParallel | None, keep: dict | None = None):
+    """``p[key]``; with ``mp``, gathered as :meth:`ModelParallel.gather`
+    says."""
+    return p[key] if mp is None else mp.leaf(p, key, keep)
+
+
+def _qkv(p: dict, xq, xkv, w, n_q: int, n_kv: int, cfg: LMConfig,
+         q_pos=None, k_pos=None):
+    """q [B, Sq, n_q, dh] of ``xq`` and k, v [B, Skv, n_kv, dh] of ``xkv``
+    by the weights ``w`` = (wq, wk, wv) in ``compute_dtype``, then qk-norm
+    and, given positions, rope (none for cross-attention)."""
+    cdt, dh = cfg.compute_dtype, cfg.head_dim
+    q = (xq @ w[0].to(cdt)).view(*xq.shape[:2], n_q, dh)
+    k = (xkv @ w[1].to(cdt)).view(*xkv.shape[:2], n_kv, dh)
+    v = (xkv @ w[2].to(cdt)).view(*xkv.shape[:2], n_kv, dh)
+    if cfg.qk_norm:
+        q = rms_norm(q, p["q_norm"], cfg.norm_eps)
+        k = rms_norm(k, p["k_norm"], cfg.norm_eps)
+    if q_pos is not None:
+        q = apply_rope(q, q_pos, cfg.rope_theta)
+        k = apply_rope(k, k_pos, cfg.rope_theta)
+    return q, k, v
+
+
+def _blockwise(q, k, v, causal: bool, window, kv_cache=None,
+               cache_pos: int = 0):
+    """The blockwise route over q [B, S, KV, G, dh]: ``ops.flash_attention``
+    (the kernel on the card) when the keys are exactly ``k``/``v`` (no
+    cache, or a prefill at position 0), there is no window and the kernel
+    takes the head width; else the plain :func:`flash_attention` with its
+    masks over the cached positions [0, cache_pos + S)."""
+    n_keys = k.shape[1] if kv_cache is None else cache_pos + q.shape[1]
+    if window is None and n_keys == k.shape[1] and q.shape[-1] in HEAD_DIMS:
+        return ops.flash_attention(q, k, v, causal)
+    if kv_cache is not None:
+        k, v = kv_cache["k"][:, :n_keys], kv_cache["v"][:, :n_keys]
+    return flash_attention(q, k, v, causal=causal, window=window,
+                           q_offset=0 if kv_cache is None else cache_pos)
+
+
+def _softmax_attention(q, k, v, q_pos, kv_pos, window, causal: bool, cdt,
+                       last: int | None = None):
+    """The einsum route over q [B, S, KV, G, dh] and k, v [B, T, KV, dh]:
+    (out [B, S, KV, G, dh] in ``cdt``, the float32 logits [B, KV, G, S,
+    T] as masked).  ``q_pos`` None (cross-attention) masks nothing; else
+    the causal and window masks of positions ``q_pos`` against
+    ``kv_pos``, and with ``last`` no key beyond that position."""
+    logits = torch.einsum("bskgd,btkd->bkgst", q, k).float() \
+        * q.shape[-1] ** -0.5
+    if q_pos is not None:
+        mask = _mha_mask(q_pos, kv_pos, window, causal=causal)
+        if last is not None:
+            mask = mask & (kv_pos <= last)[None, :]
+        logits = torch.where(mask, logits, NEG_LOGIT)
+    attn = torch.softmax(logits, dim=-1).to(cdt)
+    return torch.einsum("bkgst,btkd->bskgd", attn, v), logits
+
+
 def attention_apply(p: dict, x: torch.Tensor, cfg: LMConfig,
                     positions: torch.Tensor, kv_cache: dict | None = None,
                     cache_pos: int | None = None, cross_kv=None,
-                    window: int | None = None, causal: bool = True):
+                    window: int | None = None, causal: bool = True,
+                    mp: ModelParallel | None = None):
     """Returns (out [B, S, D], kv_cache or None).
 
     * training / forward: ``kv_cache`` None, self-attention over x.
@@ -216,63 +447,158 @@ def attention_apply(p: dict, x: torch.Tensor, cfg: LMConfig,
       the cache), and ``causal`` is taken as False.
 
     Routes, decided by shape before any launch: S > 1 with ``_flash_ok``
-    over the attended keys goes blockwise — through ``ops.flash_attention``
-    (the CUDA kernel on the card) when the keys are exactly x's own (no
-    cache, or a prefill at position 0) or the encoder's, there is no window
-    and the kernel takes the head width (``HEAD_DIMS``), else through the
-    plain :func:`flash_attention` with its masks (kimi-k2's dh 112 at full
+    over the attended keys goes blockwise (:func:`_blockwise`: through
+    ``ops.flash_attention``, the CUDA kernel on the card, when the keys
+    are exactly x's own or the encoder's, there is no window and the
+    kernel takes the head width, else through the plain
+    :func:`flash_attention` with its masks, kimi-k2's dh 112 at full
     width); everything else (decode, prompts under 1024 tokens) is the
     einsum path.  A prefill at position 0 attends causally over its own
     keys, so the kernel sees the prompt's k and v, not the max_len cache:
     the same function as the JAX package's masked pass over the cache.
+
+    With ``mp`` the rank's blocks of the weights and cache go through
+    :func:`_attention_mp` (the module docstring's routes).
     """
     b, s, _ = x.shape
     dh, h, kv = cfg.head_dim, cfg.n_heads, cfg.n_kv_heads
     cdt = cfg.compute_dtype
     cross = cross_kv is not None
     src = cross_kv if cross else x
-
-    q = (x @ p["wq"].to(cdt)).view(b, s, h, dh)
-    k = (src @ p["wk"].to(cdt)).view(b, src.shape[1], kv, dh)
-    v = (src @ p["wv"].to(cdt)).view(b, src.shape[1], kv, dh)
-    if cfg.qk_norm:
-        q = rms_norm(q, p["q_norm"], cfg.norm_eps)
-        k = rms_norm(k, p["k_norm"], cfg.norm_eps)
     if cross:
         causal, window, kv_cache = False, None, None
-    else:
-        q = apply_rope(q, positions, cfg.rope_theta)
-        k = apply_rope(k, positions, cfg.rope_theta)
-
+    n_keys = src.shape[1] if kv_cache is None else cache_pos + s
+    blockwise = s > 1 and _flash_ok(s, n_keys)
+    if mp is not None:
+        return _attention_mp(p, x, src, cfg, positions, kv_cache, cache_pos,
+                             window, causal, blockwise, mp)
+    q, k, v = _qkv(p, x, src, (p["wq"], p["wk"], p["wv"]), h, kv, cfg,
+                   *((None, None) if cross else (positions, positions)))
     if kv_cache is not None:
         kv_cache["k"][:, cache_pos:cache_pos + s] = k
         kv_cache["v"][:, cache_pos:cache_pos + s] = v
     q = q.reshape(b, s, kv, cfg.q_per_kv, dh)
-    n_keys = k.shape[1] if kv_cache is None else cache_pos + s
-    if s > 1 and _flash_ok(s, n_keys):
-        if window is None and n_keys == k.shape[1] and dh in HEAD_DIMS:
-            out = ops.flash_attention(q, k, v, causal)
-        else:
-            ck = k if kv_cache is None else kv_cache["k"][:, :n_keys]
-            cv = v if kv_cache is None else kv_cache["v"][:, :n_keys]
-            off = 0 if kv_cache is None else cache_pos
-            out = flash_attention(q, ck, cv, causal=causal, window=window,
-                                  q_offset=off)
-        out = out.reshape(b, s, h * dh).to(cdt)
+    if blockwise:
+        out = _blockwise(q, k, v, causal, window, kv_cache, cache_pos)
     else:
         if kv_cache is not None:
             k, v = kv_cache["k"], kv_cache["v"]
-        logits = torch.einsum("bskgd,btkd->bkgst", q, k).float() * dh ** -0.5
-        if not cross:
-            kv_pos = torch.arange(k.shape[1], device=x.device)
-            q_pos = positions if positions.dim() == 1 else positions[0]
-            mask = _mha_mask(q_pos, kv_pos, window, causal=causal)
-            if kv_cache is not None:
-                mask = mask & (kv_pos <= cache_pos + s - 1)[None, :]
-            logits = torch.where(mask, logits, NEG_LOGIT)
-        attn = torch.softmax(logits, dim=-1).to(cdt)
-        out = torch.einsum("bkgst,btkd->bskgd", attn, v).reshape(b, s, h * dh)
-    return out @ p["wo"].to(cdt), kv_cache
+        out, _ = _softmax_attention(
+            q, k, v, None if cross else _q_pos(positions),
+            torch.arange(k.shape[1], device=x.device), window, causal, cdt,
+            None if kv_cache is None else cache_pos + s - 1)
+    return out.reshape(b, s, h * dh).to(cdt) @ p["wo"].to(cdt), kv_cache
+
+
+def _q_pos(positions: torch.Tensor) -> torch.Tensor:
+    return positions if positions.dim() == 1 else positions[0]
+
+
+def _context_parallel_flash(q, k, v, causal: bool, mp: ModelParallel):
+    """Rank r's q rows [r·S/P, (r+1)·S/P) (``q`` [B, S/P, KV, G, dh], P the
+    ``model`` ranks) against all of ``k``/``v`` [B, S, KV, dh]: query i of
+    the block sits at position r·S/P + i, so the kernel masks with that
+    ``q_offset`` and gives exactly those rows of the unsplit attention."""
+    return ops.flash_attention(q, k, v, causal, q_offset=mp.r * q.shape[1])
+
+
+def _write_cache(kv_cache: dict, k, v, cache_pos: int, mp: ModelParallel):
+    """Write positions [cache_pos, cache_pos + S) of every head's ``k``,
+    ``v`` [B, S, KV, dh] into this rank's slice of the cache, positions
+    [r·L/P, (r+1)·L/P)."""
+    n = kv_cache["k"].shape[1]
+    lo = mp.r * n
+    a, e = max(cache_pos, lo), min(cache_pos + k.shape[1], lo + n)
+    if a < e:
+        kv_cache["k"][:, a - lo:e - lo] = k[:, a - cache_pos:e - cache_pos]
+        kv_cache["v"][:, a - lo:e - lo] = v[:, a - cache_pos:e - cache_pos]
+
+
+def _split_kv_attention(q, kv_cache: dict, cache_pos: int, q_pos, window,
+                        causal: bool, cdt, mp: ModelParallel):
+    """Attention of ``q`` [B, S, KV, G, dh] (every head) over the cached
+    positions [0, cache_pos + S), each rank over its slice of them: the
+    one-process softmax and product on the slice, then the slices combined
+    (split-KV decoding) by a max ``all_reduce`` of the local maxima m_r,
+    a sum ``all_reduce`` of the weights w_r = l_r · exp(m_r - m) (l_r the
+    local sum of exp(logit - m_r)) and a sum ``all_reduce`` of the local
+    outputs times w_r / sum(w).  With one rank the weight is l / l = 1
+    exactly, so the result is the one-process attention bit for bit.
+    Returns [B, S, KV, G, dh] in ``cdt``."""
+    n = kv_cache["k"].shape[1]
+    kv_pos = mp.r * n + torch.arange(n, device=q.device)
+    out, logits = _softmax_attention(q, kv_cache["k"], kv_cache["v"], q_pos,
+                                     kv_pos, window, causal, cdt,
+                                     cache_pos + q.shape[1] - 1)
+    grp = mp.group("model")
+    m_r = logits.amax(-1)
+    l_r = torch.exp(logits - m_r[..., None]).sum(-1)
+    m = sharding.all_reduce_max(m_r.clone(), grp)
+    w_r = l_r * torch.exp(m_r - m)
+    w = sharding.all_reduce(w_r.clone(), grp)
+    scale = (w_r / w).permute(0, 3, 1, 2)[..., None]        # [B, S, KV, G, 1]
+    return sharding.all_reduce(scale * out.float(), grp).to(cdt)
+
+
+def _attention_mp(p: dict, x: torch.Tensor, src: torch.Tensor, cfg: LMConfig,
+                  positions, kv_cache, cache_pos, window, causal,
+                  blockwise: bool, mp: ModelParallel):
+    """:func:`attention_apply` on this rank's blocks (routes in the module
+    docstring): context-parallel for ``cfg.shard_attn_batch`` on the
+    blockwise prefill route, head-parallel when ``model`` divides the kv
+    heads and the weights are split so, else every weight gathered and the
+    heads computed whole.  A cache here is this rank's slice of positions;
+    a prefill with it starts at position 0."""
+    b, s, _ = x.shape
+    dh, h, kv = cfg.head_dim, cfg.n_heads, cfg.n_kv_heads
+    cdt = cfg.compute_dtype
+    cross = src is not x
+    grp = mp.group("model")
+    if kv_cache is not None and s > 1 and cache_pos != 0:
+        raise ValueError("a sharded prefill starts at cache position 0")
+
+    if (cfg.shard_attn_batch and blockwise and not cross and window is None
+            and dh in HEAD_DIMS and s % mp.m == 0):
+        rows = s // mp.m
+        lo = mp.r * rows
+        q, k, v = _qkv(p, x[:, lo:lo + rows], x,
+                       [mp.leaf(p, n) for n in ("wq", "wk", "wv")], h, kv,
+                       cfg, positions[lo:lo + rows], positions)
+        if kv_cache is not None:
+            _write_cache(kv_cache, k, v, cache_pos, mp)
+        out = _context_parallel_flash(
+            q.reshape(b, rows, kv, cfg.q_per_kv, dh), k, v, causal, mp)
+        out = out.reshape(b, rows, h * dh).to(cdt) @ mp.leaf(p, "wo").to(cdt)
+        return sharding.all_gather(out, 1, grp), kv_cache
+
+    specs = [mp.spec(n) for n in ("wq", "wk", "wv", "wo")]
+    tp = (kv % mp.m == 0 and all(_ax(sp, -1) == "model" for sp in specs[:3])
+          and _ax(specs[3], -2) == "model")
+    col, row = ({-1: "model"}, {-2: "model"}) if tp else (None, None)
+    hl, kvl = (h // mp.m, kv // mp.m) if tp else (h, kv)
+    q, k, v = _qkv(p, x, src, [mp.leaf(p, n, col) for n in ("wq", "wk", "wv")],
+                   hl, kvl, cfg,
+                   *((None, None) if cross else (positions, positions)))
+    if kv_cache is not None:
+        every = (k, v) if not tp else (sharding.all_gather(k, 2, grp),
+                                       sharding.all_gather(v, 2, grp))
+        _write_cache(kv_cache, *every, cache_pos, mp)
+    q = q.reshape(b, s, kvl, cfg.q_per_kv, dh)
+    if blockwise:
+        out = _blockwise(q, k, v, causal, window)
+    elif kv_cache is None:
+        out, _ = _softmax_attention(
+            q, k, v, None if cross else _q_pos(positions),
+            torch.arange(k.shape[1], device=x.device), window, causal, cdt)
+    else:
+        if tp:
+            q = sharding.all_gather(q, 2, grp)
+        out = _split_kv_attention(q, kv_cache, cache_pos, _q_pos(positions),
+                                  window, causal, cdt, mp)
+        if tp:
+            out = out[:, :, mp.r * kvl:(mp.r + 1) * kvl]
+    out = out.reshape(b, s, hl * dh).to(cdt) @ mp.leaf(p, "wo", row).to(cdt)
+    return (_row_sum(out, mp) if tp else out), kv_cache
 
 
 def init_kv_cache(cfg: LMConfig, batch: int, max_len: int,
@@ -298,12 +624,20 @@ def init_mlp(gen: torch.Generator, cfg: LMConfig,
     }
 
 
-def mlp_apply(p: dict, x: torch.Tensor, cfg: LMConfig) -> torch.Tensor:
+def mlp_apply(p: dict, x: torch.Tensor, cfg: LMConfig,
+              mp: ModelParallel | None = None) -> torch.Tensor:
+    """The gated MLP; with ``mp`` column-parallel ``w_gate``/``w_up`` and
+    row-parallel ``w_down`` summed by ``all_reduce`` when all three are
+    split over ``model``, else on the gathered weights."""
     cdt = cfg.compute_dtype
-    g = F.silu(x @ p["w_gate"].to(cdt))
-    u = x @ p["w_up"].to(cdt)
-    return (g * u) @ p["w_down"].to(cdt)
-
+    tp = mp is not None and (
+        _ax(mp.spec("w_gate"), -1) == _ax(mp.spec("w_up"), -1) == "model"
+        and _ax(mp.spec("w_down"), -2) == "model")
+    col, row = ({-1: "model"}, {-2: "model"}) if tp else (None, None)
+    g = F.silu(x @ _leaf(p, "w_gate", mp, col).to(cdt))
+    u = x @ _leaf(p, "w_up", mp, col).to(cdt)
+    y = (g * u) @ _leaf(p, "w_down", mp, row).to(cdt)
+    return _row_sum(y, mp) if tp else y
 
 # ---------------------------------------------------------------------------
 # MoE: top-k router + capacity-based scatter/gather dispatch (sort-free)
@@ -360,7 +694,29 @@ def moe_slots(idx: torch.Tensor, mc: MoEConfig):
     return slot, keep, cap
 
 
-def moe_apply(p: dict, x: torch.Tensor, cfg: LMConfig):
+def _moe_slots_mp(idx: torch.Tensor, mc: MoEConfig, mp: ModelParallel):
+    """:func:`moe_slots` of this rank's [t, k] assignments within the whole
+    batch: with the batch split, every rank's choices are all-gathered
+    over the batch axes, so the capacity and the assignments that
+    overflow are the one-process ones; the kept ones of this rank then
+    take slots in order in a buffer of min(cap, t * k) a expert.  Returns
+    (slot, keep, buffer capacity)."""
+    t, k = idx.shape
+    every = sharding.all_gather(idx, 0, mp.batch_group)
+    _, keep_all, cap = moe_slots(every, mc)
+    keep = keep_all.view(-1, k)[mp.batch_block * t:(mp.batch_block + 1) * t]
+    keep = keep.reshape(-1)
+    cap_l = min(cap, t * k)
+    flat_e = idx.reshape(-1)
+    onehot = (F.one_hot(flat_e, mc.n_experts) * keep[:, None]).t().contiguous()
+    before = (onehot.cumsum(1) - onehot).gather(0, flat_e[None])[0]
+    slot = torch.where(keep, flat_e * cap_l + before,
+                       torch.full_like(flat_e, mc.n_experts * cap_l))
+    return slot, keep, cap_l
+
+
+def moe_apply(p: dict, x: torch.Tensor, cfg: LMConfig,
+              mp: ModelParallel | None = None):
     """Returns (out [B, S, D], aux_loss scalar).  Capacity-dropping
     dispatch: an expert takes at most ``moe_capacity(B * S)`` assignments
     and drops the rest (GShard/Switch semantics); the kept tokens are
@@ -369,32 +725,59 @@ def moe_apply(p: dict, x: torch.Tensor, cfg: LMConfig):
     gathered back, weighted by the renormalised gates and summed per token.
     The auxiliary loss is Switch's, E * sum_e f_e * p_e times
     ``router_aux_weight``, with f_e the share of tokens whose first choice
-    is e."""
+    is e.
+
+    With ``mp``, on this rank's blocks: the routing (router, capacity,
+    slots, gates, aux loss) of the whole batch on every rank
+    (:func:`_moe_slots_mp`); with the experts' E over ``model`` this rank
+    runs its E/P experts on their slots of the dispatch buffer and the
+    gated outputs, zero for the others' experts, are summed by
+    ``all_reduce``; otherwise every expert on the gathered weights.  The
+    shared expert is :func:`mlp_apply`."""
     mc = cfg.moe
     b, s, d = x.shape
     cdt = cfg.compute_dtype
     e, k = mc.n_experts, mc.top_k
     t = b * s
     xt = x.reshape(t, d)
-    probs, idx = moe_route(xt, p["router"], mc)
+    probs, idx = moe_route(xt, _leaf(p, "router", mp), mc)
     gate = probs.gather(1, idx)
     gate = gate / gate.sum(-1, keepdim=True).clamp_min(1e-9)
-    slot, keep, cap = moe_slots(idx, mc)
-    ce = F.one_hot(idx[:, 0], e).float().mean(0)
-    aux = e * (probs.mean(0) * ce).sum() * mc.router_aux_weight
+    if mp is None or mp.batch_group is None:
+        slot, keep, cap = moe_slots(idx, mc)
+        ce = F.one_hot(idx[:, 0], e).float().mean(0)
+        aux = e * (probs.mean(0) * ce).sum() * mc.router_aux_weight
+    else:                          # the means over the whole batch
+        slot, keep, cap = _moe_slots_mp(idx, mc, mp)
+        sums = torch.stack([probs.sum(0),
+                            F.one_hot(idx[:, 0], e).float().sum(0)])
+        sums = sharding.all_reduce(sums, mp.batch_group) / (
+            t * torch.distributed.get_world_size(mp.batch_group))
+        aux = e * (sums[0] * sums[1]).sum() * mc.router_aux_weight
 
+    ep = mp is not None and all(_ax(mp.spec(n), 0) == "model"
+                                for n in ("w_gate", "w_up", "w_down"))
+    lead = {0: "model"} if ep else None
+    wg, wu, wd = (_leaf(p, n, mp, lead).to(cdt)
+                  for n in ("w_gate", "w_up", "w_down"))
+    el = wg.shape[0]                       # this rank's experts e0 + [0, el)
+    e0 = mp.r * el if ep else 0
     tok = torch.arange(t, device=x.device).repeat_interleave(k)
     buf = xt.new_zeros((e * cap + 1, d), dtype=cdt)
     buf = buf.index_put((slot,), xt[tok].to(cdt))      # row E*cap: dropped
-    ebuf = buf[:-1].view(e, cap, d)
-    g = F.silu(torch.bmm(ebuf, p["w_gate"].to(cdt)))
-    u = torch.bmm(ebuf, p["w_up"].to(cdt))
-    y = torch.bmm(g * u, p["w_down"].to(cdt)).view(e * cap, d)
-    y = torch.cat([y, y.new_zeros((1, d))])
+    ebuf = buf[e0 * cap:(e0 + el) * cap].view(el, cap, d)
+    g = F.silu(torch.bmm(ebuf, wg))
+    u = torch.bmm(ebuf, wu)
+    y = torch.bmm(g * u, wd).view(el * cap, d)
+    # zero rows for the other ranks' experts and the dropped row
+    y = torch.cat([y.new_zeros((e0 * cap, d)), y,
+                   y.new_zeros(((e - e0 - el) * cap + 1, d))])
     w = (gate.reshape(-1) * keep).to(cdt)
     out = (y[slot] * w[:, None]).view(t, k, d).sum(1)
+    if ep:
+        out = _row_sum(out, mp)
     if mc.n_shared:
-        out = out + mlp_apply(p["shared"], xt, cfg)
+        out = out + mlp_apply(p["shared"], xt, cfg, _sub(mp, "shared"))
     return out.view(b, s, d), aux
 
 
@@ -409,16 +792,45 @@ def init_embed(gen: torch.Generator, cfg: LMConfig) -> dict:
     return p
 
 
-def embed_apply(p: dict, tokens: torch.Tensor, cfg: LMConfig) -> torch.Tensor:
-    return p["tok"][tokens].to(cfg.compute_dtype)      # gather, then cast
+def embed_apply(p: dict, tokens: torch.Tensor, cfg: LMConfig,
+                mp: ModelParallel | None = None) -> torch.Tensor:
+    """Token rows of ``p["tok"]`` in ``compute_dtype``; with ``mp`` and the
+    vocab over ``model``, each rank looks up the tokens of its vocab rows,
+    zeros for the rest, summed by ``all_reduce`` (one non-zero term a
+    token: exact)."""
+    if mp is None:
+        return p["tok"][tokens].to(cfg.compute_dtype)  # gather, then cast
+    if _ax(mp.spec("tok"), 0) != "model":
+        return mp.leaf(p, "tok")[tokens].to(cfg.compute_dtype)
+    tok = mp.leaf(p, "tok", {0: "model"})
+    n = tok.shape[0]
+    local = tokens.long() - mp.r * n
+    inside = (local >= 0) & (local < n)
+    rows = tok[local.clamp(0, n - 1)].to(cfg.compute_dtype)
+    rows = torch.where(inside[..., None], rows, rows.new_zeros(()))
+    return sharding.all_reduce(rows, mp.group("model"))
 
 
-def unembed_apply(p: dict, x: torch.Tensor, cfg: LMConfig) -> torch.Tensor:
+def vocab_logits(x: torch.Tensor, p: dict, key: str, vocab_dim: int,
+                 cfg: LMConfig, mp: ModelParallel | None = None):
+    """``x @ W`` in ``compute_dtype`` for the unembedding ``p[key]`` whose
+    vocab is dim ``vocab_dim`` (0: a tied [V, D] table, used transposed;
+    1: [D, V]).  With ``mp`` and the vocab over ``model`` each rank takes
+    its vocab columns and the logits are all-gathered along the vocab."""
+    split = mp is not None and _ax(mp.spec(key), vocab_dim) == "model"
+    w = p[key] if mp is None else mp.leaf(
+        p, key, {vocab_dim: "model"} if split else None)
+    w = w.to(cfg.compute_dtype)
+    logits = x @ (w.T if vocab_dim == 0 else w)
+    return sharding.all_gather(logits, -1, mp.group("model")) if split \
+        else logits
+
+
+def unembed_apply(p: dict, x: torch.Tensor, cfg: LMConfig,
+                  mp: ModelParallel | None = None) -> torch.Tensor:
     if cfg.tie_embeddings:
-        w = p["tok"].to(cfg.compute_dtype).T
-    else:
-        w = p["unembed"].to(cfg.compute_dtype)
-    return x @ w
+        return vocab_logits(x, p, "tok", 0, cfg, mp)
+    return vocab_logits(x, p, "unembed", 1, cfg, mp)
 
 
 def softmax_xent(logits: torch.Tensor, labels: torch.Tensor,

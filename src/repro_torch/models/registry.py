@@ -1,17 +1,23 @@
 """Architecture registry: ``--arch <id>`` -> a uniform :class:`ModelApi` —
 the port of ``repro.models.registry``.
 
-  init(generator)                         -> params
+  init(generator, keep=whole)             -> params
   forward(params, batch)                  -> (logits, aux)
   loss_fn(params, batch)                  -> scalar
   prefill(params, batch, max_len=None)    -> (last_logits, cache, pos)
   decode_step(params, cache, tokens, pos) -> (logits, cache)
+  input_specs(shape)                      -> batch on the meta device
+  decode_state_specs(shape)               -> cache on the meta device
+  supports(shape)                         -> (ok, reason)
   param_counts()                          -> (total, active)
 
-``ARCH_MODULES`` lists every architecture of the JAX package, each with its
-config in ``repro_torch.configs`` and its family's model code.  The JAX
-module's ``input_specs``/``decode_state_specs`` (abstract shapes for the
-dry run) have no counterpart: ``launch/serve.make_batch`` makes the inputs.
+``forward``, ``loss_fn``, ``prefill`` and ``decode_step`` take ``mp=`` (a
+``layers.ModelParallel``) for one rank of a device mesh.  ``ARCH_MODULES``
+lists every architecture of the JAX package, each with its config in
+``repro_torch.configs`` and its family's model code.  A shape is a name of
+``configs.shapes.SHAPES`` (a (config, shape) pair is a dry-run cell,
+launch/dryrun.py); the ``meta`` tensors carry shapes and dtypes and no
+storage, as ``jax.eval_shape``'s structs do.
 """
 
 from __future__ import annotations
@@ -23,7 +29,8 @@ from typing import Callable
 
 import torch
 
-from repro_torch.models.layers import LMConfig
+from repro_torch.configs.shapes import SHAPES, ShapeCell, supported
+from repro_torch.models.layers import LMConfig, init_kv_cache
 from repro_torch.utils.trees import tree_leaves
 
 ARCH_MODULES = {
@@ -74,10 +81,23 @@ class ModelApi:
     prefill: Callable
     decode_step: Callable
 
+    def input_specs(self, shape: str) -> dict:
+        """The batch of a cell of ``shape`` on the meta device."""
+        return _lm_input_specs(self.cfg, SHAPES[shape])
+
+    def decode_state_specs(self, shape: str):
+        """The decode cache / recurrent states of a cell of ``shape`` on the
+        meta device (no allocation)."""
+        return _decode_state_specs(self.cfg, SHAPES[shape])
+
+    def supports(self, shape: str) -> tuple[bool, str]:
+        return supported(self.name, shape)
+
     def param_shapes(self) -> dict:
         """The parameter tree on the ``meta`` device: shapes and dtypes,
-        no storage (the full kimi-k2 counts on any machine)."""
-        return self.init(_ShapeGenerator())
+        no storage (the full kimi-k2 counts on any machine); built once
+        per model API and shared, so callers must not change it."""
+        return _param_shapes(self)
 
     def param_counts(self) -> tuple[int, int]:
         """(total, active) parameter counts, as the JAX package computes
@@ -92,6 +112,54 @@ class ModelApi:
             expert = sum(moe[k].numel() for k in ("w_gate", "w_up", "w_down"))
             active = total - expert + int(expert * mc.top_k / mc.n_experts)
         return total, active
+
+
+@functools.lru_cache(maxsize=32)
+def _param_shapes(api: ModelApi) -> dict:
+    return api.init(_ShapeGenerator())
+
+
+def _meta(shape, dtype) -> torch.Tensor:
+    return torch.empty(shape, dtype=dtype, device="meta")
+
+
+def _lm_input_specs(cfg: LMConfig, cell: ShapeCell) -> dict:
+    """A cell's inputs as the JAX package's ``_lm_input_specs`` shapes them:
+    decode takes ``tokens`` [B]; a vlm's prefill/train batch S - n_patches
+    text tokens and [B, n_patches, patch_embed_dim] bfloat16 patches; an
+    enc-dec's S/2 bfloat16 frames of d_model and S/2 tokens."""
+    b, s = cell.global_batch, cell.seq_len
+    if cell.kind == "decode":
+        return {"tokens": _meta((b,), torch.int32)}
+    if cfg.family == "vlm":
+        text = s - cfg.n_patches
+        if text <= 0:
+            raise ValueError(f"{cfg.name} x {cell.name}: no text positions")
+        return {"tokens": _meta((b, text), torch.int32),
+                "patch_embeds": _meta((b, cfg.n_patches,
+                                       cfg.patch_embed_dim), torch.bfloat16)}
+    if cfg.family == "encdec":
+        half = s // 2
+        return {"frames": _meta((b, half, cfg.d_model), torch.bfloat16),
+                "tokens": _meta((b, half), torch.int32)}
+    return {"tokens": _meta((b, s), torch.int32)}
+
+
+def _decode_state_specs(cfg: LMConfig, cell: ShapeCell):
+    b, s = cell.global_batch, cell.seq_len
+    if cfg.family in ("dense", "moe", "vlm"):
+        return init_kv_cache(cfg, b, s, layers_dim=cfg.n_layers,
+                             device="meta")
+    if cfg.family in ("xlstm", "griffin"):
+        fam = importlib.import_module(FAMILY_MODULES[cfg.family])
+        return fam.init_states(cfg, b, device="meta")
+    if cfg.family == "encdec":
+        from repro_torch.configs.seamless_m4t_medium import ENC_STUB_LEN
+        return {"self": init_kv_cache(cfg, b, s, layers_dim=cfg.n_layers,
+                                      device="meta"),
+                "enc_out": _meta((b, ENC_STUB_LEN, cfg.d_model),
+                                 cfg.compute_dtype)}
+    raise ValueError(cfg.family)
 
 
 @functools.lru_cache(maxsize=None)
@@ -110,7 +178,7 @@ def build(arch: str, reduced: bool = False,
     fam = importlib.import_module(FAMILY_MODULES[cfg.family])
     return ModelApi(
         name=arch, cfg=cfg,
-        init=lambda generator: fam.init(generator, cfg),
+        init=functools.partial(fam.init, cfg=cfg),
         forward=functools.partial(fam.forward, cfg=cfg),
         loss_fn=functools.partial(fam.loss_fn, cfg=cfg),
         prefill=functools.partial(fam.prefill, cfg=cfg),

@@ -26,6 +26,11 @@ ffn_norm, w_ff_gate, w_ff_up, w_ff_down``), ``final_norm`` and
 D], m [G, 7, B, H], conv_buf [G, 7, B, 4, inner]), "slstm": (h, c, n, m)
 each [G, B, d_model]}``, all float32; every entry point returns new state
 tensors and leaves the ones passed in as they were.
+
+With ``mp`` (a ``layers.ModelParallel``) every entry point gathers each
+leaf the rank holds a block of before using it (a group's leaves as the
+group runs, the rest at the entry) and runs the one-process code on the
+rank's batch rows; the states hold that batch whole over ``model``.
 """
 
 from __future__ import annotations
@@ -36,9 +41,11 @@ import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
-from repro_torch.models.layers import (LMConfig, dense_init, embed_apply,
-                                       embed_init, rms_norm, softmax_xent)
-from repro_torch.models.transformer import _unstack, init_stacked, remat_on
+from repro_torch.models.layers import (LMConfig, constrain_batch, dense_init,
+                                       embed_apply, embed_init, rms_norm,
+                                       softmax_xent)
+from repro_torch.models.transformer import (_unstack, init_stacked,
+                                            remat_on, whole)
 
 MLSTM_PER_GROUP = 7
 LAYERS_PER_GROUP = MLSTM_PER_GROUP + 1
@@ -291,20 +298,23 @@ def slstm_block_apply(p: dict, x: torch.Tensor, cfg: LMConfig, state,
 # full model
 # ---------------------------------------------------------------------------
 
-def init(generator: torch.Generator, cfg: LMConfig) -> dict:
+def init(generator: torch.Generator, cfg: LMConfig, keep=whole) -> dict:
     """Random parameters drawn from ``generator``, on its device; each
-    group's blocks are copied into the stacked leaves as they are drawn."""
+    group's blocks are copied into the stacked leaves as they are drawn,
+    each through ``keep`` (``transformer.init``)."""
     G = n_groups(cfg)
     return {
-        "embed": {"tok": embed_init(generator, cfg.vocab, cfg.d_model,
-                                    cfg.param_dtype)},
+        "embed": keep("embed", {"tok": embed_init(
+            generator, cfg.vocab, cfg.d_model, cfg.param_dtype)}),
         "mlstm": init_stacked(lambda: init_stacked(
-            lambda: init_mlstm_block(generator, cfg), MLSTM_PER_GROUP), G),
-        "slstm": init_stacked(lambda: init_slstm_block(generator, cfg), G),
-        "final_norm": torch.zeros(cfg.d_model, dtype=cfg.param_dtype,
-                                  device=generator.device),
-        "unembed": dense_init(generator, cfg.d_model, cfg.vocab,
-                              cfg.param_dtype),
+            lambda: keep("mlstm", init_mlstm_block(generator, cfg), 2),
+            MLSTM_PER_GROUP), G),
+        "slstm": init_stacked(
+            lambda: keep("slstm", init_slstm_block(generator, cfg), 1), G),
+        "final_norm": keep("final_norm", torch.zeros(
+            cfg.d_model, dtype=cfg.param_dtype, device=generator.device)),
+        "unembed": keep("unembed", dense_init(
+            generator, cfg.d_model, cfg.vocab, cfg.param_dtype)),
     }
 
 
@@ -319,12 +329,12 @@ def init_states(cfg: LMConfig, batch: int, device=None) -> dict:
             "slstm": tuple(z(G, B, cfg.d_model) for _ in range(4))}
 
 
-def _group_apply(mp: list, sp: dict, mstate: list, sstate: tuple,
+def _group_apply(blocks: list, sp: dict, mstate: list, sstate: tuple,
                  x: torch.Tensor, cfg: LMConfig, chunk: int, decode: bool):
     """One group: 7 mLSTM blocks, then the sLSTM block.  Returns (x, the 7
     new mLSTM states, the new sLSTM state)."""
     new = []
-    for p, st in zip(mp, mstate):
+    for p, st in zip(blocks, mstate):
         x, st = mlstm_block_apply(p, x, cfg, st, chunk=chunk, decode=decode)
         new.append(st)
     x, sstate = slstm_block_apply(sp, x, cfg, sstate, decode=decode)
@@ -332,7 +342,7 @@ def _group_apply(mp: list, sp: dict, mstate: list, sstate: tuple,
 
 
 def _stack_forward(params: dict, x: torch.Tensor, cfg: LMConfig, states,
-                   decode: bool = False):
+                   decode: bool = False, mp=None):
     """The groups in order; returns (x, new states)."""
     G = n_groups(cfg)
     remat = remat_on(cfg) and not decode
@@ -341,15 +351,19 @@ def _stack_forward(params: dict, x: torch.Tensor, cfg: LMConfig, states,
     m_groups = _unstack(params["mlstm"], G)
     s_groups = _unstack(params["slstm"], G)
     for g in range(G):
-        mp = _unstack(m_groups[g], MLSTM_PER_GROUP)
+        mg, sg = m_groups[g], s_groups[g]
+        if mp is not None:
+            mg = mp.sub("mlstm").layer().gather_tree(mg)
+            sg = mp.sub("slstm").layer().gather_tree(sg)
+        blocks = _unstack(mg, MLSTM_PER_GROUP)
         mstate = list(zip(*(t[g] for t in states["mlstm"])))
         sstate = tuple(t[g] for t in states["slstm"])
-        args = (mp, s_groups[g], mstate, sstate, x, cfg, cfg.mlstm_chunk,
-                decode)
+        args = (blocks, sg, mstate, sstate, x, cfg, cfg.mlstm_chunk, decode)
         if remat:
             x, new, ns = checkpoint(_group_apply, *args, use_reentrant=False)
         else:
             x, new, ns = _group_apply(*args)
+        x = constrain_batch(x, mp)
         for j, st in enumerate(new):
             for dst, src in zip(m_new, st):
                 dst[g, j] = src
@@ -358,41 +372,55 @@ def _stack_forward(params: dict, x: torch.Tensor, cfg: LMConfig, states,
     return x, {"mlstm": m_new, "slstm": s_new}
 
 
+def _gathered(params: dict, mp) -> dict:
+    """The parameters with every leaf outside the stacked ``mlstm`` and
+    ``slstm`` groups gathered whole (``mp`` None: ``params`` itself)."""
+    if mp is None:
+        return params
+    return {k: v if k in ("mlstm", "slstm") else mp.sub(k).gather_tree(v)
+            for k, v in params.items()}
+
+
 def _logits(params: dict, x: torch.Tensor, cfg: LMConfig) -> torch.Tensor:
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
     return x @ params["unembed"].to(cfg.compute_dtype)
 
 
-def forward(params: dict, batch: dict, cfg: LMConfig):
+def forward(params: dict, batch: dict, cfg: LMConfig, mp=None):
     """Full-sequence forward from zero states: (logits [B, S, V], aux = 0),
     the formulation of the JAX package's ``loss_fn``."""
+    params = _gathered(params, mp)
     x = embed_apply(params["embed"], batch["tokens"], cfg)
     x, _ = _stack_forward(params, x, cfg,
-                          init_states(cfg, x.shape[0], x.device))
+                          init_states(cfg, x.shape[0], x.device), mp=mp)
     return _logits(params, x, cfg), torch.zeros((), device=x.device)
 
 
-def loss_fn(params: dict, batch: dict, cfg: LMConfig) -> torch.Tensor:
+def loss_fn(params: dict, batch: dict, cfg: LMConfig,
+            mp=None) -> torch.Tensor:
     """Next-token cross-entropy of :func:`forward`."""
-    logits, _ = forward(params, batch, cfg)
+    logits, _ = forward(params, batch, cfg, mp)
     return softmax_xent(logits[:, :-1], batch["tokens"][:, 1:])
 
 
 def prefill(params: dict, batch: dict, cfg: LMConfig,
-            max_len: int | None = None):
+            max_len: int | None = None, mp=None):
     """Runs the prompt and builds the states; returns (last_logits [B, 1,
     V], states, pos = S).  ``max_len`` is accepted for the registry's
     signature: the states do not grow with the sequence."""
+    params = _gathered(params, mp)
     x = embed_apply(params["embed"], batch["tokens"], cfg)
     b, s = x.shape[:2]
-    x, states = _stack_forward(params, x, cfg, init_states(cfg, b, x.device))
+    x, states = _stack_forward(params, x, cfg, init_states(cfg, b, x.device),
+                               mp=mp)
     return _logits(params, x[:, -1:], cfg), states, s
 
 
 def decode_step(params: dict, states: dict, tokens: torch.Tensor, pos: int,
-                cfg: LMConfig):
+                cfg: LMConfig, mp=None):
     """One decode step: tokens [B] -> (logits [B, 1, V], new states);
     ``pos`` is accepted for the registry's signature."""
+    params = _gathered(params, mp)
     x = embed_apply(params["embed"], tokens[:, None], cfg)
-    x, states = _stack_forward(params, x, cfg, states, decode=True)
+    x, states = _stack_forward(params, x, cfg, states, decode=True, mp=mp)
     return _logits(params, x, cfg), states

@@ -202,3 +202,82 @@ def cohort_checks(rank: int, world: int, combine: tuple, rounds: tuple
     """:func:`cohort_combines` and :func:`cohort_rounds` in one run."""
     return {"combine": cohort_combines(rank, world, *combine),
             "round": cohort_rounds(rank, world, *rounds)}
+
+
+def _model_api(arch: str, dtype: str):
+    """(family module, reduced config in ``dtype`` compute) of ``arch``;
+    llava's with ``shard_attn_batch`` on, as its full config has it."""
+    import dataclasses
+    import importlib
+
+    from repro_torch.models import registry
+    cfg = registry.build(arch, reduced=True).cfg
+    cfg = dataclasses.replace(cfg, compute_dtype=getattr(torch, dtype),
+                              shard_attn_batch=cfg.family == "vlm")
+    return importlib.import_module(registry.FAMILY_MODULES[cfg.family]), cfg
+
+
+def lm_run(fam, cfg, params, batch, max_len: int, feed: np.ndarray,
+           mp=None) -> dict:
+    """One prefill and len(feed) decode steps fed the tokens ``feed`` [B,
+    steps] (int32; this rank's rows): the prefill's and every step's
+    logits, the greedy pick after each, and the collective counts of the
+    prefill and of each step (with ``mp``)."""
+    from repro_torch.distributed import sharding
+    out = {"logits": [], "picks": [], "counts": []}
+    with torch.inference_mode():
+        sharding.reset_collective_counts()
+        logits, cache, pos = fam.prefill(params, batch, cfg, max_len=max_len,
+                                         mp=mp)
+        for step in range(feed.shape[1] + 1):
+            out["counts"].append({k: dict(v) for k, v in
+                                  sharding.collective_counts.items()})
+            out["logits"].append(logits.float().numpy())
+            out["picks"].append(logits[:, -1].argmax(-1).numpy())
+            if step == feed.shape[1]:
+                break
+            sharding.reset_collective_counts()
+            logits, cache = fam.decode_step(
+                params, cache, torch.as_tensor(feed[:, step]), pos + step,
+                cfg, mp=mp)
+    return out
+
+
+def model_parallel(rank: int, world: int, cases: dict) -> dict:
+    """Each case on a (data, model) mesh of this world: the reduced model's
+    random parameters (seed 0) cut to this rank's blocks by ``param_specs``
+    (with ``fsdp``), its batch rows by ``batch_specs``, then
+    :func:`lm_run` through ``ModelParallel``.  A case: ``arch``, ``dtype``,
+    ``mesh`` (data, model), ``fsdp``, ``batch`` (numpy arrays, bfloat16
+    ones as float32), ``max_len``, ``feed`` [B, steps], and optionally
+    ``params`` (the JAX package's tree as a nested dict of numpy arrays)
+    and ``reference`` (rank 0 also runs the one-process path)."""
+    from repro_torch import convert
+    from repro_torch.distributed import sharding
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models.layers import ModelParallel
+    out = {}
+    for name, c in cases.items():
+        fam, cfg = _model_api(c["arch"], c["dtype"])
+        mesh = make_mesh(*c["mesh"], device_type="cpu")
+        params = (convert.lm_params_from_tree(c["params"]) if "params" in c
+                  else fam.init(torch.Generator().manual_seed(0), cfg))
+        batch = {k: torch.as_tensor(v) for k, v in c["batch"].items()}
+        for k in ("patch_embeds", "frames"):
+            if k in batch:                       # drawn in bfloat16
+                batch[k] = batch[k].to(torch.bfloat16)
+        if c.get("reference") and rank == 0:
+            out[name + ":reference"] = lm_run(fam, cfg, params, batch,
+                                              c["max_len"], c["feed"])
+        pspecs = sharding.param_specs(params, cfg, mesh, fsdp=c["fsdp"])
+        bspecs = sharding.batch_specs(batch, mesh)
+        b = batch["tokens"].shape[0]
+        mp = ModelParallel.of(mesh, pspecs, global_batch=b)
+        rows = sharding.shard_leaf(torch.arange(b), bspecs["tokens"][:1],
+                                   mp.coords, mp.sizes)
+        out[name] = lm_run(fam, cfg, sharding.shard_params(params, pspecs,
+                                                           mesh),
+                           sharding.shard_params(batch, bspecs, mesh),
+                           c["max_len"], c["feed"][rows.numpy()], mp)
+        out[name]["rows"] = rows.numpy()
+    return out

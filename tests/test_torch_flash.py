@@ -179,3 +179,51 @@ def test_one_bf16_rounding_of_p_breaks_the_bf16_gate():
     want = ref.flash_attention_ref(q, k, v, True)
     bad = ~torch.isclose(got.float(), want.float(), **FLASH_TOL_BF16)
     assert int(bad.sum()) > 1000
+
+
+# ---------------------------------------------------------------------------
+# a query offset: context-parallel slices of the q rows
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("n_split", [2, 4])
+def test_q_offset_slices_match_jax_and_the_unsplit_call(n_split, dtype):
+    """Rank p of P model ranks attends with q rows [p·S/P, (p+1)·S/P) and
+    all of k and v at ``q_offset`` p·S/P (models/layers.py's
+    context-parallel route): each slice of the plain version equals JAX's
+    ``layers.flash_attention(q_offset=)`` on the same slice, and the
+    slices concatenated are bitwise the unsplit call (a fully masked key
+    block adds exact zeros, so each row sees the same arithmetic)."""
+    s = 256
+    rs = s // n_split
+    (q, k, v), (jq, jk, jv) = _inputs(11, 2, s, s, 2, 3, 32, dtype)
+    whole = ref.flash_attention_ref(q, k, v, True, q_block=32, kv_block=64)
+    parts = []
+    for p in range(n_split):
+        sl = slice(p * rs, (p + 1) * rs)
+        got = ref.flash_attention_ref(q[:, sl], k, v, True, q_offset=p * rs,
+                                      q_block=32, kv_block=64)
+        want = jlayers.flash_attention(jq[:, sl], jk, jv, causal=True,
+                                       q_offset=p * rs, q_block=32,
+                                       kv_block=64)
+        _close(got, want, dtype, f"slice {p} of {n_split}")
+        parts.append(got)
+    assert torch.equal(torch.cat(parts, 1), whole)
+
+
+def test_ops_flash_attention_takes_q_offset_with_a_gradient():
+    """``ops.flash_attention(..., q_offset=)`` on the CPU is the plain
+    version at that offset, and its autograd Function differentiates the
+    plain version at the same offset."""
+    (q, k, v), _ = _inputs(13, 1, 64, 192, 1, 2, 32, "float32")
+    got = ops.flash_attention(q, k, v, True, q_offset=128)
+    assert torch.equal(got, ref.flash_attention_ref(q, k, v, True,
+                                                    q_offset=128))
+    xs = [x.clone().requires_grad_() for x in (q, k, v)]
+    ys = [x.clone().requires_grad_() for x in (q, k, v)]
+    with torch.enable_grad():
+        ops.flash_attention(*xs, True, q_offset=128).square().sum().backward()
+        ref.flash_attention_ref(*ys, True, q_offset=128).square().sum(
+        ).backward()
+    for a, b in zip(xs, ys):
+        torch.testing.assert_close(a.grad, b.grad, rtol=1e-5, atol=1e-6)

@@ -1,6 +1,7 @@
 """The port stands alone: nothing under src/repro_torch/ and nothing in
 chip_smoke.py imports JAX or the JAX package ``repro``, so the port runs on
-a machine that has neither."""
+a machine that has neither.  tests/_torch_dist.py, whose functions run in
+spawned ranks, imports neither either."""
 
 import ast
 from pathlib import Path
@@ -11,7 +12,7 @@ pytest.importorskip("torch")
 
 ROOT = Path(__file__).resolve().parents[1]
 FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
-    ROOT / "chip_smoke.py"]
+    ROOT / "chip_smoke.py", ROOT / "tests" / "_torch_dist.py"]
 FORBIDDEN = ("jax", "jaxlib", "repro")
 
 
