@@ -206,6 +206,21 @@ else.  Phases (every mismatch raises, so any failure exits non-zero):
      CNN, 3 rounds of two policies, card against CPU on the same inputs:
      selections equal, round times rtol 1e-5, the final model within phase
      7's relative L2, one FedAvg-combine launch a round.
+ 19. training over a (data, model) mesh, inside a NCCL process group of
+     world size 1 (every collective and every backward collective runs
+     through NCCL over a group of one): (a) phase 15b's recipe (smollm-135m
+     full width, AdamW lr 3e-4 wd 0.1, 4 x 4096, remat) through
+     ``launch/steps.make_train_step(..., mp=)`` on a 1 x 1 mesh, 1 + 3
+     steps, each step's loss, every updated parameter and both AdamW
+     moments bitwise the one-process step on the same weights and batch,
+     60 bf16 attention launches a step, seconds a step and the collectives
+     a step beside the one-process step's; the mesh step refuses CPU
+     tensors in the NCCL group; (b) phase 17d's cohort round (4 cohorts x
+     2 SGD steps of 2 x 1024 tokens, weights (1, 0, 2, 1)) through
+     ``make_fl_round(..., mesh, stacked_specs)`` at model size 1, every
+     compress mode bitwise the round without a mesh on the same inputs,
+     with 480 bf16 attention launches a round and one FedAvg-combine launch
+     (none under int8_psum).
 
 Launch counts are zeroed before each sweep and read after it; each sweep
 must launch its kernels once per (policy, round) (the local top-S once per
@@ -2638,6 +2653,7 @@ def phase_train_step(results: dict) -> None:
                              f"{int(state['step'])}")
     results["flash_attention_wgmma"]["train_launches"] = \
         counts["flash_attention_wgmma"] // TRAIN_STEPS
+    TRAIN_ONE["s"] = dt
     holder = {"p": params, "s": state}
 
     def one_step():
@@ -3861,6 +3877,196 @@ def phase_mesh(results: dict) -> None:
         f"{card_name_and_power()}")
 
 
+# ---------------------------------------------------------------------------
+# phase 19: training over a (data, model) mesh on one NCCL rank
+# ---------------------------------------------------------------------------
+
+MESH_TRAIN_STEPS = 3               # (a): timed steps after one warm-up
+TRAIN_ONE: dict = {}               # phase 15b's seconds a step, for (a)
+
+
+def _tree_equal(a, b) -> bool:
+    from repro_torch.utils.trees import tree_leaves
+    la, lb = tree_leaves(a), tree_leaves(b)
+    return len(la) == len(lb) and all(
+        x.dtype == y.dtype and torch.equal(x, y) for x, y in zip(la, lb))
+
+
+def _launched(counts: dict, more: dict) -> dict:
+    return {k: counts.get(k, 0) + more.get(k, 0) for k in {*counts, *more}}
+
+
+def phase_mesh_train_step(results: dict) -> None:
+    """(a): the full-width smollm-135m AdamW step on a 1 x 1 mesh against
+    the one-process step, step by step on the same weights and batches."""
+    from repro_torch.distributed import sharding
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models.layers import ModelParallel
+    from repro_torch.models.registry import build
+    from repro_torch.optim.sgd import OptimizerConfig
+
+    api = build("smollm-135m", reduced=False)
+    cfg = api.cfg
+    opt_cfg = OptimizerConfig(name="adamw", lr=3e-4, weight_decay=0.1)
+    mesh = make_mesh(1, 1, device_type="cuda")
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(0)
+    params = api.init(gen)
+    pspecs = sharding.param_specs(params, cfg, mesh)
+    mp = ModelParallel.of(mesh, pspecs, global_batch=TRAIN_BATCH)
+    one_step, opt = make_train_step(api, opt_cfg)
+    mesh_step, _ = make_train_step(api, opt_cfg, mp=mp)
+    one = {"p": params, "s": opt.init(params)}
+    mine = {"p": sharding.shard_params(params, pspecs, mesh)}
+    mine["s"] = opt.init(mine["p"])
+    rng = np.random.default_rng(0)
+    batches = [{"tokens": torch.tensor(
+        rng.integers(0, cfg.vocab, (TRAIN_BATCH, TRAIN_SEQ)),
+        dtype=torch.int32, device="cuda")}
+        for _ in range(MESH_TRAIN_STEPS + 1)]
+    per_step = 2 * cfg.n_layers if cfg.remat else cfg.n_layers
+    times = {"one": [], "mesh": []}
+    launches, coll = {}, {}
+    for i, batch in enumerate(batches):
+        for who, step in (("one", one_step), ("mesh", mesh_step)):
+            st = one if who == "one" else mine
+            reset_counts()
+            sharding.reset_collective_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            st["p"], st["s"], st["loss"] = step(st["p"], st["s"], batch)
+            torch.cuda.synchronize()
+            times[who].append(time.perf_counter() - t0)
+            counts = check_launches("19a", {"flash_attention_wgmma":
+                                            per_step})
+            if who == "mesh":
+                launches = _launched(launches, counts)
+                coll = {k: v["calls"] for k, v in
+                        sharding.collective_counts.items()}
+        same = {"loss": torch.equal(one["loss"], mine["loss"]),
+                "params": _tree_equal(one["p"], mine["p"]),
+                "m": _tree_equal(one["s"]["m"], mine["s"]["m"]),
+                "v": _tree_equal(one["s"]["v"], mine["s"]["v"])}
+        if not all(same.values()):
+            raise AssertionError(f"[19a] step {i}: the 1 x 1 mesh step "
+                                 f"differs from the one-process step: "
+                                 f"{same}")
+    if not (math.isfinite(float(mine["loss"]))
+            and int(mine["s"]["step"]) == MESH_TRAIN_STEPS + 1):
+        raise AssertionError("[19a] the mesh step's loss or counter")
+    if min(coll["all_reduce"], coll["all_gather"]) < 1:
+        raise AssertionError(f"[19a] the model-parallel route did not run: "
+                             f"{coll}")
+    results["flash_attention_wgmma"].setdefault(
+        "mesh_train_launches", {})["19a_step"] = \
+        launches["flash_attention_wgmma"] // len(batches)
+    one_s = statistics.mean(times["one"][1:])
+    mesh_s = statistics.mean(times["mesh"][1:])
+    log(f"[19a] smollm-135m full width, AdamW step at {TRAIN_BATCH} x "
+        f"{TRAIN_SEQ} (remat {cfg.remat}) through make_train_step(mp=) on a "
+        f"1 x 1 mesh: {len(batches)} steps, each step's loss, every "
+        f"parameter and both AdamW moments bitwise the one-process step; "
+        f"{mesh_s:.4f} s a step (one-process step in the same run "
+        f"{one_s:.4f} s, phase 15b {TRAIN_ONE.get('s', float('nan')):.4f} "
+        f"s; mean of the last {MESH_TRAIN_STEPS}); collectives a step "
+        f"{coll} (one process: none); bf16 attention launches a step "
+        f"{launches['flash_attention_wgmma'] // len(batches)}; last loss "
+        f"{float(mine['loss']):.5f}")
+    del one, mine, params, batches
+    torch.cuda.empty_cache()
+    # no fallback through the host: a CPU tensor in the NCCL group raises
+    small = build("smollm-135m", reduced=True)
+    cpu = small.init(torch.Generator().manual_seed(0))
+    cspecs = sharding.param_specs(cpu, small.cfg, mesh)
+    step, _ = make_train_step(small, opt_cfg, mp=ModelParallel.of(
+        mesh, cspecs, global_batch=2))
+    try:
+        step(cpu, opt.init(cpu), {"tokens": torch.zeros(
+            (2, 16), dtype=torch.int32)})
+    except ValueError as e:
+        if "nccl" not in str(e):
+            raise
+        log(f"[19a] the mesh step refuses CPU tensors in the NCCL group: "
+            f"{e}")
+    else:
+        raise AssertionError("[19a] the mesh step took CPU tensors in a "
+                             "NCCL group")
+
+
+def phase_mesh_cohorts(results: dict) -> None:
+    """(b): phase 17d's cohort round through ``make_fl_round`` with a mesh
+    and the stacked specs at model size 1, against the round without a
+    mesh on the same inputs, every compress mode."""
+    from repro_torch.distributed import fl_parallel, sharding
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models.registry import build
+    from repro_torch.optim.sgd import OptimizerConfig
+    api = build("smollm-135m", reduced=False)
+    cfg = api.cfg
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(17)
+    params = api.init(gen)
+    opt = OptimizerConfig(name="sgd", lr=COHORT_LR, lr_decay=0.0).build()
+    rng = np.random.default_rng(17)
+    batches = {"tokens": torch.tensor(rng.integers(
+        0, cfg.vocab, (COHORTS, COHORT_STEPS, COHORT_BATCH, COHORT_SEQ)),
+        dtype=torch.int32, device="cuda")}
+    weights = torch.tensor(COHORT_WEIGHTS, device="cuda")
+    mesh = make_mesh(1, 1, device_type="cuda")
+    sspecs = fl_parallel.stacked_param_specs(
+        sharding.param_specs(params, cfg, mesh), mesh)
+    per_step = 2 * cfg.n_layers if cfg.remat else cfg.n_layers
+    attn = COHORTS * COHORT_STEPS * per_step
+    for mode in fl_parallel.COMPRESS:
+        out, dt = {}, {}
+        for who in ("flat", "mesh"):
+            kw = ({"group": torch.distributed.group.WORLD} if who == "flat"
+                  else {"mesh": mesh, "stacked_specs": sspecs})
+            fl_round = fl_parallel.make_fl_round(
+                api.loss_fn, opt, COHORT_STEPS, compress=mode,
+                topk_ratio=COHORT_RATIO, **kw)
+            st = fl_parallel.init_cohort_states(
+                opt, fl_parallel.stack_for_cohorts(params, COHORTS))
+            reset_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out[who] = fl_round(params, st, batches, weights)
+            torch.cuda.synchronize()
+            dt[who] = time.perf_counter() - t0
+            counts = check_launches("19b", {
+                "flash_attention_wgmma": attn,
+                "fedavg_combine": int(mode != "int8_psum")})
+            del st
+        (a, oa, la), (b, ob, lb) = out["flat"], out["mesh"]
+        if not (_tree_equal(a, b) and _tree_equal(oa, ob)
+                and torch.equal(la, lb)):
+            raise AssertionError(f"[19b] compress={mode}: the mesh round "
+                                 f"differs from the round without a mesh")
+        if mode == "none":
+            results["flash_attention_wgmma"].setdefault(
+                "mesh_train_launches", {})["19b_round"] = counts[
+                "flash_attention_wgmma"]
+            results["fedavg_combine"]["mesh_train_launches"] = {
+                "19b_round": counts["fedavg_combine"]}
+        log(f"[19b] compress={mode}: make_fl_round(mesh 1 x 1, stacked "
+            f"specs) bitwise the round without a mesh (new global model, "
+            f"cohort states, loss {float(lb):.5f}); round {dt['mesh']:.3f} "
+            f"s (without a mesh {dt['flat']:.3f} s); launches {counts}")
+        del out, a, b, oa, ob
+    del params, batches
+    torch.cuda.empty_cache()
+
+
+def phase_mesh_train(results: dict) -> None:
+    t0 = time.perf_counter()
+    with process_group("19"):
+        phase_mesh_train_step(results)
+        phase_mesh_cohorts(results)
+    log(f"[19] phase time {time.perf_counter() - t0:.1f} s; "
+        f"{card_name_and_power()}")
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: CUDA is not available; this script runs on "
@@ -3894,6 +4100,7 @@ def main() -> None:
     phase_families(results)
     phase_devices(results)
     phase_mesh(results)
+    phase_mesh_train(results)
     log(f"[done] {time.perf_counter() - t0:.1f} s")
     log(card_name_and_power())          # again, beside the results
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
@@ -3901,7 +4108,7 @@ def main() -> None:
             "device_ms")
     extra = ("shapes", "split_device_ms", "async_launches", "train_launches",
              "fl_train_launches", "family_launches", "devices_launches",
-             "offsets", "mesh_launches")
+             "offsets", "mesh_launches", "mesh_train_launches")
     print(json.dumps({"kernels": [
         {**{k: r[k] for k in keys}, **{k: r[k] for k in extra if k in r}}
         for r in results.values()]}))

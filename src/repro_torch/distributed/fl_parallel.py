@@ -16,24 +16,40 @@ no group one process holds them all.  One FL round =
      compressed on the wire: int8 or top-k deltas all-gathered instead of
      float32 parameters.
 
-A cohort's model lies whole on its rank.  The JAX mesh's ``model`` axis
-inside a cohort (tensor-parallel training) waits for the sharded train
-step: the model-parallel routes of ``models/layers.py`` serve (prefill and
-decode) over a mesh, with no gradient through their collectives yet.
+Two layouts, as :func:`make_fl_round` is called:
+
+  * no mesh: the C cohorts over the ranks of ``group`` (None: one process
+    holds them all), each cohort's model whole on its rank;
+  * a (data, model) device mesh and the stacked specs
+    (:func:`stacked_param_specs`), as in the JAX package: cohorts over
+    ``sharding.cohort_axes(mesh)``, and tensor parallelism over ``model``
+    inside each cohort.  A rank holds its cohorts' blocks of every leaf
+    (``param_specs`` with FSDP off, the specs less their cohort entry), and
+    a cohort's local steps run the model's model-parallel routes through
+    ``mp`` (``models/layers.ModelParallel``, the cohort's batch whole on
+    each of its ranks), their gradients through the collectives' autograd
+    Functions (distributed/sharding.py).  Aggregation works on each rank's
+    own block, over the ranks that hold the same block of the other
+    cohorts (:func:`cohort_group`), as JAX's ``shard_map`` over the local
+    block does: the int8 scales, the int8_psum max and the top-k choice
+    are per (cohort, block), so the compressed modes' numbers are JAX's on
+    the same mesh.
 """
 
 from __future__ import annotations
 
+import functools
 from typing import Any, Callable
 
 import torch
 import torch.distributed as dist
 
 from repro_torch.core.bandit import fdiv
-from repro_torch.distributed import compression
+from repro_torch.distributed import compression, sharding
 from repro_torch.distributed.sharding import all_reduce, gather_shards
 from repro_torch.kernels import ops
 from repro_torch.launch.steps import value_and_grad
+from repro_torch.models.layers import ModelParallel
 from repro_torch.optim.sgd import Optimizer
 from repro_torch.utils.trees import tree_leaves, tree_map, tree_unflatten
 
@@ -208,27 +224,69 @@ def fedavg_across_cohorts(stacked_params: Any, weights: torch.Tensor,
 # the full FL round
 # ---------------------------------------------------------------------------
 
+def stacked_param_specs(pspecs: Any, mesh) -> Any:
+    """Every leaf's spec with the cohort axes prepended (the leading
+    cohort dim of the stacked layout), as the JAX package's
+    ``P(cohort_axes, *spec)``; ``mesh`` a ``DeviceMesh`` or its axis
+    sizes."""
+    ca = sharding.cohort_axes(mesh)
+    return sharding.map_with_path(
+        lambda _, s: sharding.Spec((ca,) + tuple(s)), pspecs)
+
+
+def cohort_group(mesh):
+    """The process group of the ranks of ``mesh`` that share this rank's
+    coordinates on every axis but the cohort axes: they hold the same
+    block of the other cohorts' models."""
+    ca = sharding.cohort_axes(mesh)
+    if len(ca) == 1:
+        return mesh.get_group(ca[0])
+    return mesh[ca]._flatten().get_group()
+
+
 def make_fl_round(loss_fn: Callable, opt: Optimizer, n_local_steps: int,
+                  mesh=None, stacked_specs: Any = None,
                   compress: str = "none", topk_ratio: float = 0.01,
                   group=None):
     """Builds fl_round(global_params, stacked_opt, batches, weights)
     -> (new_global_params, new_stacked_opt, mean_loss).
 
-    ``global_params``: the single model, the same on every rank;
-    ``stacked_opt``/``batches``: this rank's cohorts' optimizer states
-    (:func:`init_cohort_states`) and [C/R, n_local_steps, ...] minibatches;
-    ``weights`` [C] = selection mask x n_samples over all cohorts (zeros
-    drop a cohort).  The mean loss is the weight-averaged local loss over
-    all cohorts.  Each cohort's model lies whole on its rank; the
-    ``model`` axis inside a cohort (a tensor-parallel train step) is not
-    taken yet (module docstring).
+    ``global_params``: the single model, the same on every rank of a
+    cohort group; ``stacked_opt``/``batches``: this rank's cohorts'
+    optimizer states (:func:`init_cohort_states`) and [C/R, n_local_steps,
+    ...] minibatches; ``weights`` [C] = selection mask x n_samples over
+    all cohorts (zeros drop a cohort).  The mean loss is the
+    weight-averaged local loss over all cohorts.
+
+    With no ``mesh`` each cohort's model lies whole on its rank and the
+    cohorts sit on the ranks of ``group``; ``loss_fn(params, batch)``.
+    With a ``DeviceMesh`` and ``stacked_specs`` (:func:`stacked_param_specs`
+    of the model's ``param_specs``), the JAX package's contract: the
+    cohorts sit on the cohort axes, ``global_params`` and ``stacked_opt``
+    are this rank's blocks, and ``loss_fn(params, batch, mp=...)`` runs the
+    model-parallel routes over ``model`` (module docstring); the result is
+    this rank's block of the new global model.
     """
     if compress not in COMPRESS:
         raise ValueError(f"unknown compress mode {compress!r}")
-    local = make_local_steps(loss_fn, opt, n_local_steps)
+    if (mesh is None) != (stacked_specs is None):
+        raise ValueError("a mesh takes its stacked specs, and only then")
+    if mesh is not None:
+        if group is not None:
+            raise ValueError("on a mesh the cohort group is the mesh's")
+        group = cohort_group(mesh)
+        pspecs = sharding.map_with_path(
+            lambda _, s: sharding.Spec(tuple(s)[1:]), stacked_specs)
 
     def fl_round(global_params, stacked_opt, batches, weights):
         c = tree_leaves(batches)[0].shape[0]
+        step_loss = loss_fn
+        if mesh is not None:
+            mp = ModelParallel.of(mesh, pspecs,
+                                  tree_leaves(batches)[0].shape[2],
+                                  split_batch=False)
+            step_loss = functools.partial(loss_fn, mp=mp)
+        local = make_local_steps(step_loss, opt, n_local_steps)
         stacked = stack_for_cohorts(global_params, c)
         outs = [local(_cohort(stacked, i), _cohort(stacked_opt, i),
                       _cohort(batches, i)) for i in range(c)]

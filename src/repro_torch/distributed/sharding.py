@@ -1,8 +1,8 @@
-"""Sharding over ``torch.distributed`` ranks — the port of the sweep half
-of ``repro.distributed.sharding`` (``sweep_mesh``, ``pad_leading``,
-``shard_vmapped``, ``shard_leading``, ``even_shards``,
+"""Sharding over ``torch.distributed`` ranks — the port of
+``repro.distributed.sharding``: its sweep half (``sweep_mesh``,
+``pad_leading``, ``shard_vmapped``, ``shard_leading``, ``even_shards``,
 ``bandit_state_bytes``) plus the two cross-shard steps of the segmented
-round.
+round, and its model half (the spec rules, below).
 
 A JAX device is a rank here, one card each.  A sweep's ``devices`` = P
 asks for P shards; :func:`resolve_group` spreads them over the R ranks of
@@ -30,6 +30,64 @@ A collective runs on the tensors as they are: NCCL takes CUDA tensors and
 gloo CPU ones, and a mismatch raises (no copy through the host).  JAX's
 ``replicate`` has no counterpart: every rank holds its own copy of what is
 not sharded.
+
+The model half (below) adds the spec rules of the LMs and the collectives
+their model-parallel routes run (models/layers.py).  Under autograd (the
+train step, launch/steps.py) each of those collectives is one of four
+``torch.autograd.Function``\\ s, the conjugate pairs of tensor parallelism;
+with no gradient tracked (serving) each is the plain collective:
+
+  ====================  ==================  ==============================
+  Function              forward             backward
+  ====================  ==================  ==============================
+  SumPartials           all_reduce          identity
+  CopyToParallel        identity            all_reduce
+  GatherReplicated      all_gather          this rank's slice
+  GatherSplit           all_gather          reduce-scatter (sum, slice)
+  ====================  ==================  ==============================
+
+Which one a call site takes depends on what follows it, not on the
+collective.  A gather whose result every rank of the axis uses for the same
+work takes GatherReplicated; one whose result each rank uses on its own
+share of the work (its batch rows, its query rows) takes GatherSplit.  The
+two backward rules differ by a factor of the axis size, which shows only
+in the gradients of earlier layers.  The call sites:
+
+  ==============================================  =====================
+  call site (models/)                              rule, axis
+  ==============================================  =====================
+  layers._row_sum: row-parallel wo and w_down,     SumPartials, model
+  the experts' gated outputs
+  layers.embed_apply, vocab over model             SumPartials, model
+  layers.softmax_xent, batch split                 SumPartials, batch
+  layers.moe_apply's routing means, batch split    SumPartials, batch
+  the input of column-parallel wq/wk/wv (x, and a  CopyToParallel, model
+  cross-attention's source), w_gate/w_up, the
+  vocab-split unembedding; the experts' dispatch
+  input and their gate weights
+  q_norm/k_norm on the head- and context-parallel  CopyToParallel, model
+  routes (applied to this rank's heads or rows)
+  the context-parallel route's x                   CopyToParallel, model
+  layers.vocab_logits: logits along the vocab      GatherReplicated, model
+  transformer._embed_inputs: patch_proj's columns  GatherReplicated, model
+  context-parallel output along the sequence       GatherReplicated, model
+  ModelParallel.gather over model: gathered        GatherReplicated, model
+  attention and MLP weights, the MoE's experts,
+  griffin's and xlstm's gather-before-use leaves
+  ModelParallel.gather over model on the           GatherSplit, model
+  context-parallel route (wq, wk, wv, wo)
+  ModelParallel.gather over data (FSDP), batch     GatherSplit, data
+  split over data
+  ModelParallel.gather over data, batch whole      GatherReplicated, data
+  ==============================================  =====================
+
+Serving alone runs the rest, with no gradient: split-KV decoding's
+combine, the KV cache's gathers over the heads and the MoE's gather of
+every rank's expert choices (integers).  With these rules a rank's
+gradient of a replicated leaf is the same on every model rank and covers
+its own batch rows; ``launch/steps.make_train_step`` sums it once over the
+batch axes.  A leaf split over ``data`` (FSDP) is summed by its gather's
+reduce-scatter.
 """
 
 from __future__ import annotations
@@ -165,14 +223,17 @@ def gather_shards(x: torch.Tensor, dim: int = 1, group=None) -> torch.Tensor:
     """Every rank's ``x`` concatenated along ``dim`` in rank order
     (``all_gather``): the block axis [..., P/R, ...] -> [..., P, ...], or a
     grid's rows.  On one process (``group`` None) ``x`` already holds them
-    all.  Every rank's ``x`` has the same shape."""
+    all.  Every rank's ``x`` has the same shape.  Counted in
+    ``collective_counts`` (below)."""
     if group is None:
         return x
     x = x.contiguous()
     _check_backend(x, group)
     parts = [torch.empty_like(x) for _ in range(dist.get_world_size(group))]
     dist.all_gather(parts, x, group=group)
-    return torch.cat(parts, dim)
+    out = torch.cat(parts, dim)
+    _count("all_gather", out)
+    return out
 
 
 def shard_state(state: BanditState, n_shards: int) -> BanditState:
@@ -521,12 +582,13 @@ def shard_params(params, specs, mesh):
 
 # The collectives of the model-parallel LMs.  Each counts its calls and
 # bytes (all_reduce: the tensor's; all_gather: the gathered result's, the
-# JAX package's result-shape convention) while it runs, for the dry run and
-# chip_smoke.py to read.
+# JAX package's result-shape convention; reduce_scatter: the summed input's)
+# while it runs, in the forward and in the backward pass alike, for the dry
+# run and chip_smoke.py to read.
 
 collective_counts = {kind: {"calls": 0, "bytes": 0}
                      for kind in ("all_reduce", "all_reduce_max",
-                                  "all_gather")}
+                                  "all_gather", "reduce_scatter")}
 
 
 def reset_collective_counts() -> None:
@@ -562,3 +624,123 @@ def all_gather(x: torch.Tensor, dim: int, group) -> torch.Tensor:
     gather(out, xt, group=group)
     _count("all_gather", out)
     return out.movedim(0, dim).contiguous()
+
+
+# ---------------------------------------------------------------------------
+# The collectives under autograd: the conjugate pairs of tensor parallelism
+# (the table in the module docstring says which call site takes which).
+# Each is out of place and counted in ``collective_counts`` in the forward
+# and in the backward pass.  With no gradient to track (serving, or a group
+# of None) each is the plain collective above.
+# ---------------------------------------------------------------------------
+
+def reduce_scatter(x: torch.Tensor, dim: int, group) -> torch.Tensor:
+    """The sum over the ranks of ``group`` of every rank's ``x``, cut along
+    ``dim`` into as many equal blocks as ranks: this rank's block (a new
+    contiguous tensor)."""
+    _check_backend(x, group)
+    n = dist.get_world_size(group)
+    xt = x.movedim(dim, 0).contiguous()
+    out = xt.new_empty((xt.shape[0] // n,) + tuple(xt.shape[1:]))
+    # torch 2.13 names it reduce_scatter_single, as all_gather above
+    scatter = getattr(dist, "reduce_scatter_single", None) \
+        or dist.reduce_scatter_tensor
+    scatter(out, xt, group=group)
+    _count("reduce_scatter", xt)
+    return out.movedim(0, dim).contiguous()
+
+
+def _summed(x: torch.Tensor, group) -> torch.Tensor:
+    return all_reduce(x.clone(memory_format=torch.contiguous_format), group)
+
+
+class SumPartials(torch.autograd.Function):
+    """Forward: the ranks' partial results summed (``all_reduce``).
+    Backward: the identity, since what follows is the same on every rank."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        return _summed(x, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+class CopyToParallel(torch.autograd.Function):
+    """Forward: the identity, where a tensor the same on every rank meets
+    work split over the ranks.  Backward: the ranks' partial gradients
+    summed (``all_reduce``)."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _summed(g, ctx.group), None
+
+
+class _Gather(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, dim, group):
+        ctx.dim, ctx.group, ctx.size = dim % x.dim(), group, x.shape[dim]
+        return all_gather(x, dim, group)
+
+
+class GatherReplicated(_Gather):
+    """Forward: ``all_gather`` along ``dim``.  Backward: this rank's slice
+    of the gradient, since every rank does the same work with the gathered
+    tensor."""
+
+    @staticmethod
+    def backward(ctx, g):
+        lo = dist.get_rank(ctx.group) * ctx.size
+        return g.narrow(ctx.dim, lo, ctx.size).contiguous(), None, None
+
+
+class GatherSplit(_Gather):
+    """Forward: ``all_gather`` along ``dim``.  Backward: a reduce-scatter
+    (the ranks' gradients summed, then this rank's slice), since each rank
+    uses the gathered tensor on its own share of the work."""
+
+    @staticmethod
+    def backward(ctx, g):
+        return reduce_scatter(g, ctx.dim, ctx.group), None, None
+
+
+def _tracked(x: torch.Tensor) -> bool:
+    return torch.is_grad_enabled() and x.requires_grad
+
+
+def sum_partials(x: torch.Tensor, group) -> torch.Tensor:
+    """:class:`SumPartials` of ``x`` (``x`` itself for ``group`` None).
+    With no gradient tracked the sum runs in place: pass a tensor the
+    caller does not read again."""
+    if group is None:
+        return x
+    if not _tracked(x):
+        return all_reduce(x, group)
+    return SumPartials.apply(x, group)
+
+
+def copy_to_parallel(x: torch.Tensor, group) -> torch.Tensor:
+    """:class:`CopyToParallel` of ``x`` (``x`` itself for ``group`` None or
+    with no gradient tracked)."""
+    if group is None or not _tracked(x):
+        return x
+    return CopyToParallel.apply(x, group)
+
+
+def gather(x: torch.Tensor, dim: int, group, split: bool = False
+           ) -> torch.Tensor:
+    """Every rank's ``x`` concatenated along ``dim``: :class:`GatherSplit`
+    when each rank uses the result on its own share of the work
+    (``split``), else :class:`GatherReplicated`; the plain
+    :func:`all_gather` with no gradient tracked."""
+    if group is None:
+        return x
+    if not _tracked(x):
+        return all_gather(x, dim, group)
+    return (GatherSplit if split else GatherReplicated).apply(x, dim, group)

@@ -5,6 +5,7 @@ one rank's sharded program on ``meta`` tensors — the port's counterpart of
     python -m repro_torch.launch.dryrun                  # every cell, 16x16 and 2x16x16
     python -m repro_torch.launch.dryrun --mesh 1x4 --mesh 1x8 --arch llava-next-34b
     python -m repro_torch.launch.dryrun --reduced --mesh 2x4 --no-production
+    python -m repro_torch.launch.dryrun --fl-round smollm-135m --compress int8
 
 The JAX package lowers and compiles each cell on 256 and 512 fake XLA
 devices.  Here rank 0 of a fake process group of the mesh's world size
@@ -12,10 +13,12 @@ devices.  Here rank 0 of a fake process group of the mesh's world size
 at once and move nothing) builds the mesh, cuts the parameters, the batch
 and the cache to its blocks by the specs of ``launch/steps.build_cell``
 and runs the cell's step on them: a prefill, a decode step at the last
-position, or a train cell's forward (its gradient and update are the next
-slice's: the optimizer state is counted from its specs, no step is run).
-On ``meta`` tensors nothing is computed and no kernel launches: attention
-takes its plain blockwise route, as on the CPU.  For each cell it reports
+position, or a train cell's AdamW step (``launch/steps.make_train_step``
+with ``mp``: the loss, its backward through the collectives' autograd
+Functions, the sum of each leaf's gradient over the batch axes and the
+update of this rank's blocks and moments).  On ``meta`` tensors nothing
+is computed and no kernel launches: attention takes its plain blockwise
+route, as on the CPU.  For each cell it reports
 
   * bytes one rank holds, from the specs: parameters, optimizer state
     (AdamW, train cells), cache (decode cells) and inputs, and whether
@@ -25,9 +28,13 @@ takes its plain blockwise route, as on the CPU.  For each cell it reports
     ``sharding.block_keeper`` cuts it (one layer, or the embedding), the
     least the draw needs (``serve.py --mesh``);
   * FLOPs of one rank's matmuls, by ``torch.utils.flop_counter
-    .FlopCounterMode`` over the step (2 per multiply-add);
+    .FlopCounterMode`` over the step (2 per multiply-add; ``flops_of``
+    says which step: ``train``, ``prefill`` or ``decode``), and for a
+    train cell also ``forward_flops``, the loss's forward alone;
   * the collectives the rank issued, calls and bytes by kind
-    (``distributed/sharding.collective_counts``);
+    (``distributed/sharding.collective_counts``), a train cell's in both
+    passes: with ``remat`` each layer's forward collectives run a second
+    time in the backward's recompute;
 
 and writes them to a JSON file after every cell (``--out``, by default
 ``build/dryrun_results.json``; cells already there are run again).  griffin and xlstm hold their recurrent
@@ -36,6 +43,16 @@ states whole over ``model`` with the batch split as the activations are
 ``cache_held_bytes`` is what the program holds and ``cache_bytes`` what
 ``cache_specs`` implies (which leaves some states' batch whole).  Runs on the CPU; needs no
 card.
+
+``--fl-round ARCH --compress MODE`` (repeatable) runs the paper's FL round
+instead (:func:`run_fl_round_cell`, the JAX package's "paper-representative
+roofline cell"): on the production 16 x 16 mesh unless ``--mesh`` names
+others, every slice of the cohort axes a cohort with train_4k's batch cut
+evenly over them, one local SGD step (lr 0.05, momentum 0.9) with tensor
+parallelism over ``model``, then the masked FedAvg of
+``distributed/fl_parallel.make_fl_round`` in that wire format.  It reports
+the stacked parameter and optimizer bytes a rank (``local_bytes`` of the
+stacked specs), FLOPs and the collectives by kind.
 """
 
 from __future__ import annotations
@@ -53,11 +70,13 @@ import torch
 import torch.distributed as dist
 
 from repro_torch.configs.shapes import SHAPES
-from repro_torch.distributed import sharding
+from repro_torch.distributed import fl_parallel, sharding
 from repro_torch.launch.mesh import parse_mesh, production_shapes
 from repro_torch.launch.steps import build_cell
 from repro_torch.models.layers import ModelParallel
 from repro_torch.models.registry import FAMILY_MODULES, build, list_archs
+from repro_torch.optim.sgd import OptimizerConfig
+from repro_torch.utils.trees import tree_leaves, tree_map
 
 RESULTS = (Path(__file__).resolve().parents[3] / "build"
            / "dryrun_results.json")
@@ -177,23 +196,120 @@ def _run_rank(api, spec, cell, sizes: dict, inputs, cache_specs) -> dict:
         batch = sharding.shard_params(inputs, spec.batch_specs, mesh)
         mp = ModelParallel.of(mesh, spec.param_specs,
                               global_batch=cell.global_batch)
+        out = {"flops_of": cell.kind}
+        if cell.kind == "train":
+            forward = FlopCounterMode(display=False)
+            with torch.no_grad(), forward:
+                api.loss_fn(params, batch, mp=mp)
+            out["forward_flops"] = int(forward.get_total_flops())
+            opt = sharding.shard_params(spec.abstract_args[1],
+                                        spec.opt_specs, mesh)
         sharding.reset_collective_counts()
         counter = FlopCounterMode(display=False)
-        with torch.inference_mode(), counter:
-            if cell.kind == "train":
-                api.forward(params, batch, mp=mp)
-            elif cell.kind == "prefill":
-                spec.fn(params, batch, mp=mp)
-            else:
-                cache = sharding.shard_params(spec.abstract_args[1],
-                                              cache_specs, mesh)
-                spec.fn(params, cache, batch["tokens"],
-                        spec.abstract_args[3], mp=mp)
+        if cell.kind == "train":
+            with counter:
+                spec.fn(params, opt, batch, mp=mp)
+        else:
+            with torch.inference_mode(), counter:
+                if cell.kind == "prefill":
+                    spec.fn(params, batch, mp=mp)
+                else:
+                    cache = sharding.shard_params(spec.abstract_args[1],
+                                                  cache_specs, mesh)
+                    spec.fn(params, cache, batch["tokens"],
+                            spec.abstract_args[3], mp=mp)
         coll = {k: dict(v) for k, v in sharding.collective_counts.items()}
-    return {"flops": int(counter.get_total_flops()),
-            "flops_of": "forward" if cell.kind == "train" else cell.kind,
+    return {**out, "flops": int(counter.get_total_flops()),
             "collectives": coll,
             "collective_bytes": sum(v["bytes"] for v in coll.values())}
+
+
+def run_fl_round_cell(arch: str, compress: str, sizes: dict, *,
+                      reduced: bool = False, flops: bool = True) -> dict:
+    """The FL round of the module docstring on the mesh of axis
+    ``sizes``: its record."""
+    api = build(arch, reduced=reduced)
+    cfg = api.cfg
+    t0 = time.perf_counter()
+    n_cohorts = math.prod(sizes[a] for a in sharding.cohort_axes(sizes))
+    cell = SHAPES["train_4k"]
+    per_cohort = cell.global_batch // n_cohorts
+    opt = OptimizerConfig(name="sgd", lr=0.05, momentum=0.9).build()
+    pshapes = api.param_shapes()
+    pspecs = sharding.param_specs(pshapes, cfg, sizes, fsdp=False)
+    sspecs = fl_parallel.stacked_param_specs(pspecs, sizes)
+    stacked = tree_map(lambda x: x.new_empty((n_cohorts,) + x.shape),
+                       pshapes)
+    oshapes = {"step": torch.empty((n_cohorts,), dtype=torch.int32,
+                                   device="meta"),
+               "mu": tree_map(lambda x: x.new_empty(x.shape, dtype=torch.float32), stacked)}
+    ospecs = sharding.opt_specs(oshapes, sspecs)
+    total, active = api.param_counts()
+    rec = {"status": "ok", "arch": arch, "compress": compress,
+           "shape": "train_4k", "mesh": "x".join(map(str, sizes.values())),
+           "axes": list(sizes), "n_devices": math.prod(sizes.values()),
+           "reduced": reduced, "params_total": total,
+           "params_active": active, "fsdp": False, "n_cohorts": n_cohorts,
+           "cohort_batch": per_cohort,
+           "param_bytes": sharding.local_bytes(stacked, sspecs, sizes),
+           "opt_bytes": sharding.local_bytes(oshapes, ospecs, sizes)}
+    if flops:
+        rec.update(_run_fl_rank(api, opt, compress, sizes, pspecs, sspecs,
+                                n_cohorts, per_cohort, cell.seq_len))
+    rec["seconds"] = time.perf_counter() - t0
+    return rec
+
+
+def _run_fl_rank(api, opt, compress: str, sizes: dict, pspecs, sspecs,
+                 n_cohorts: int, per_cohort: int, seq: int) -> dict:
+    """Rank 0's FL round on its meta blocks: FLOPs and collectives."""
+    from torch.distributed.device_mesh import init_device_mesh
+    from torch.utils.flop_counter import FlopCounterMode
+    with fake_world(math.prod(sizes.values())):
+        mesh = init_device_mesh("cpu", tuple(sizes.values()),
+                                mesh_dim_names=tuple(sizes))
+        params = sharding.shard_params(api.param_shapes(), pspecs, mesh)
+        here = n_cohorts // dist.get_world_size(
+            fl_parallel.cohort_group(mesh))
+        states = fl_parallel.init_cohort_states(
+            opt, fl_parallel.stack_for_cohorts(params, here))
+        batches = {"tokens": torch.empty((here, 1, per_cohort, seq),
+                                         dtype=torch.int32, device="meta")}
+        weights = torch.empty((n_cohorts,), device="meta")
+        fl_round = fl_parallel.make_fl_round(api.loss_fn, opt, 1, mesh,
+                                             sspecs, compress=compress)
+        sharding.reset_collective_counts()
+        counter = FlopCounterMode(display=False)
+        with counter:
+            fl_round(params, states, batches, weights)
+        coll = {k: dict(v) for k, v in sharding.collective_counts.items()}
+    return {"flops": int(counter.get_total_flops()), "flops_of": "fl_round",
+            "collectives": coll,
+            "collective_bytes": sum(v["bytes"] for v in coll.values())}
+
+
+def _summary(rec: dict) -> str:
+    """One cell's record as a line of the run's log."""
+    if rec["status"] != "ok":
+        return f"{rec['status']}: {rec.get('reason') or rec.get('error')}"
+    if "rank_bytes" in rec:
+        line = (f"{rec['rank_bytes'] / 1e9:.2f} GB a rank (params "
+                f"{rec['param_bytes'] / 1e9:.2f}, opt "
+                f"{rec['opt_bytes'] / 1e9:.2f}, cache "
+                f"{rec['cache_bytes'] / 1e9:.2f}, inputs "
+                f"{rec['input_bytes'] / 1e9:.3f}; init "
+                f"{rec['init_bytes'] / 1e9:.2f}), fits 80 GB: "
+                f"{rec['fits_80gb']}")
+    else:
+        line = (f"{rec['n_cohorts']} cohorts of batch {rec['cohort_batch']};"
+                f" stacked params {rec['param_bytes'] / 1e9:.3f} GB a rank,"
+                f" opt {rec['opt_bytes'] / 1e9:.3f}")
+    if "flops" in rec:
+        calls = {k: v["calls"] for k, v in rec["collectives"].items()
+                 if v["calls"]}
+        line += (f"; {rec['flops']:.3e} FLOPs ({rec['flops_of']}), "
+                 f"collectives {rec['collective_bytes']:.3e} B {calls}")
+    return line + f" [{rec['seconds']:.1f} s]"
 
 
 def main(argv=None) -> dict:
@@ -208,45 +324,48 @@ def main(argv=None) -> dict:
     ap.add_argument("--no-flops", action="store_true",
                     help="bytes from the specs only; run no program")
     ap.add_argument("--out", default=str(RESULTS))
+    ap.add_argument("--fl-round", default=None, metavar="ARCH",
+                    help="run the FL cohort round of ARCH instead of the "
+                         "step cells (on 16x16 unless --mesh is given)")
+    ap.add_argument("--compress", action="append", default=None,
+                    choices=list(fl_parallel.COMPRESS),
+                    help="the FL round's wire format (repeatable; none)")
     args = ap.parse_args(argv)
-    meshes = {} if args.no_production else production_shapes()
-    meshes.update({m: parse_mesh(m) for m in args.mesh})
+    if args.fl_round:
+        meshes = ({m: parse_mesh(m) for m in args.mesh} if args.mesh else
+                  {"16x16": production_shapes()["16x16"]})
+        cells = [(f"fl-round-{mode}|{args.fl_round}", mode)
+                 for mode in args.compress or ["none"]]
+    else:
+        meshes = {} if args.no_production else production_shapes()
+        meshes.update({m: parse_mesh(m) for m in args.mesh})
+        cells = [(f"{arch}|{shape}", shape)
+                 for arch in args.arch or list_archs()
+                 for shape in args.shape or list(SHAPES)]
     out = Path(args.out)
     res = json.loads(out.read_text()) if out.exists() else {}
     failures = []
     for mname, sizes in meshes.items():
-        for arch in args.arch or list_archs():
-            for shape in args.shape or list(SHAPES):
-                key = f"{arch}|{shape}|{mname}" + ("|reduced" if args.reduced
-                                                   else "")
-                try:
-                    rec = run_cell(arch, shape, sizes, reduced=args.reduced,
-                                   flops=not args.no_flops)
-                except Exception as e:       # a failed cell is a bug
-                    rec = {"status": "fail",
-                           "error": f"{type(e).__name__}: {e}",
-                           "trace": traceback.format_exc()[-2000:]}
-                    failures.append(key)
-                res[key] = rec
-                out.parent.mkdir(parents=True, exist_ok=True)
-                out.write_text(json.dumps(res, indent=1, sort_keys=True))
-                if rec["status"] == "ok":
-                    print(f"[{key}] {rec['rank_bytes'] / 1e9:.2f} GB a rank "
-                          f"(params {rec['param_bytes'] / 1e9:.2f}, opt "
-                          f"{rec['opt_bytes'] / 1e9:.2f}, cache "
-                          f"{rec['cache_bytes'] / 1e9:.2f}, inputs "
-                          f"{rec['input_bytes'] / 1e9:.3f}; init "
-                          f"{rec['init_bytes'] / 1e9:.2f}), fits 80 GB: "
-                          f"{rec['fits_80gb']}"
-                          + (f"; {rec['flops']:.3e} FLOPs "
-                             f"({rec['flops_of']}), collectives "
-                             f"{rec['collective_bytes']:.3e} B"
-                             if "flops" in rec else "")
-                          + f" [{rec['seconds']:.1f} s]", flush=True)
+        for cell, what in cells:
+            key = f"{cell}|{mname}" + ("|reduced" if args.reduced else "")
+            try:
+                if args.fl_round:
+                    rec = run_fl_round_cell(
+                        args.fl_round, what, sizes, reduced=args.reduced,
+                        flops=not args.no_flops)
                 else:
-                    print(f"[{key}] {rec['status']}: "
-                          f"{rec.get('reason') or rec.get('error')}",
-                          flush=True)
+                    rec = run_cell(cell.split("|")[0], what, sizes,
+                                   reduced=args.reduced,
+                                   flops=not args.no_flops)
+            except Exception as e:       # a failed cell is a bug
+                rec = {"status": "fail",
+                       "error": f"{type(e).__name__}: {e}",
+                       "trace": traceback.format_exc()[-2000:]}
+                failures.append(key)
+            res[key] = rec
+            out.parent.mkdir(parents=True, exist_ok=True)
+            out.write_text(json.dumps(res, indent=1, sort_keys=True))
+            print(f"[{key}] {_summary(rec)}", flush=True)
     n_ok = sum(r["status"] == "ok" for r in res.values())
     print(f"done: {n_ok} ok of {len(res)} in {out}; {len(failures)} "
           f"failed")

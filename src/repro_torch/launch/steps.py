@@ -1,14 +1,27 @@
 """Step functions — the port of ``repro.launch.steps`` (``make_train_step``,
 ``make_prefill_step``, ``make_decode_step``).
 
-``make_train_step(api, opt_cfg)`` gives ``train_step(params, opt_state,
-batch) -> (params, opt_state, loss)``: the model's ``loss_fn``, its
-gradient by autograd (through the attention and scan kernels'
+``make_train_step(api, opt_cfg, mp=None)`` gives ``train_step(params,
+opt_state, batch) -> (params, opt_state, loss)``: the model's ``loss_fn``,
+its gradient by autograd (through the attention and scan kernels'
 ``torch.autograd.Function``\\ s on the card, kernels/ops.py), then the
 optimizer's functional update.  The parameters passed in are not changed;
 new ones are returned, as in the JAX package.  With ``cfg.remat`` the
 model recomputes each layer in the backward pass
-(``torch.utils.checkpoint``), as JAX's ``jax.checkpoint`` does.
+(``torch.utils.checkpoint``), as JAX's ``jax.checkpoint`` does; on a mesh
+that runs the recomputed layers' collectives a second time.
+
+On a device mesh (``mp`` a ``models/layers.ModelParallel``) the step takes
+this rank's blocks of the parameters (``sharding.shard_params`` by
+``param_specs``), of the AdamW state (by ``opt_specs``: the moments take
+the parameters' specs) and of the batch (``batch_specs``), and returns its
+updated blocks.  The gradient flows back through the collectives'
+autograd Functions (distributed/sharding.py), which leave every leaf's
+gradient on this rank covering its own batch rows; each leaf is then
+summed once over the batch axes its spec does not split
+(:func:`sum_over_batch`; a leaf split over ``data`` by FSDP was summed by
+its gather's reduce-scatter).  AdamW is elementwise, with no global norm,
+so each block's update is the one-process update of that block.
 
 ``build_cell(arch, shape, mesh)`` assembles one dry-run cell (an
 architecture at one of ``configs/shapes.SHAPES`` on a mesh): the step
@@ -22,6 +35,7 @@ it.
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Any, Callable
 
 import torch
@@ -50,13 +64,42 @@ def value_and_grad(loss_fn: Callable, params: dict, *args):
     return loss.detach(), tree_unflatten(params, out)
 
 
-def make_train_step(api: ModelApi, opt_cfg: OptimizerConfig):
-    """``(train_step, optimizer)``; ``optimizer.init(params)`` makes the
-    state the step takes."""
-    opt = opt_cfg.build()
+def sum_over_batch(grads, mp) -> Any:
+    """Each leaf of ``grads`` (this rank's, of its own batch rows) summed
+    in place over the batch axes its spec (``mp.specs``) does not split,
+    when the batch is split over them: the whole batch's gradient of that
+    block.  Returns ``grads``."""
+    if mp.batch_group is None:
+        return grads
+    axes = sharding.batch_axes(mp.sizes)
 
-    def train_step(params, opt_state, batch):
-        loss, grads = value_and_grad(api.loss_fn, params, batch)
+    def total(path, g):
+        spec = sharding.spec_at(mp.specs, path)
+        split = {a for entry in spec if entry is not None
+                 for a in ((entry,) if isinstance(entry, str) else entry)}
+        left = tuple(a for a in axes if a not in split)
+        if left:             # FSDP splits data alone: at most pod is left
+            sharding.all_reduce(g, mp.batch_group if left == axes
+                                else mp.group(left[0]))
+        return g
+    return sharding.map_with_path(total, grads)
+
+
+def make_train_step(api: ModelApi, opt_cfg: OptimizerConfig, mp=None):
+    """``(train_step, optimizer)``; ``optimizer.init(params)`` makes the
+    state the step takes.  With ``mp`` (module docstring) every argument
+    and result is this rank's block.  ``train_step`` also takes ``mp=`` in
+    a call, as the prefill and decode steps do (the dry run builds its
+    rank's view only when it runs the cell)."""
+    opt = opt_cfg.build()
+    default = mp
+
+    def train_step(params, opt_state, batch, mp=default):
+        loss_fn = api.loss_fn if mp is None else functools.partial(
+            api.loss_fn, mp=mp)
+        loss, grads = value_and_grad(loss_fn, params, batch)
+        if mp is not None:
+            grads = sum_over_batch(grads, mp)
         new_params, new_opt = opt.update(grads, opt_state, params)
         return new_params, new_opt, loss
 

@@ -164,7 +164,7 @@ def loss_fn(params: dict, batch: dict, cfg: LMConfig,
             mp=None) -> torch.Tensor:
     """Next-token cross-entropy of the decoder's :func:`forward`."""
     logits, _ = forward(params, batch, cfg, mp)
-    return softmax_xent(logits[:, :-1], batch["tokens"][:, 1:])
+    return softmax_xent(logits[:, :-1], batch["tokens"][:, 1:], mp=mp)
 
 
 def prefill(params: dict, batch: dict, cfg: LMConfig,

@@ -53,6 +53,15 @@ routes, by leaf:
     rank's positions, combining the partial results as split-KV decoding
     does: a max ``all_reduce`` of the local maxima, then a sum
     ``all_reduce`` of the rescaled sums and one of the rescaled outputs.
+
+Under autograd (training over a mesh, ``launch/steps.make_train_step``)
+every collective of the routes above but the serving-only ones (the KV
+cache's, split-KV decoding's, the MoE's gather of expert choices) is an
+autograd Function of ``distributed/sharding.py``, whose module docstring
+has the table of call sites and their backward rules; a replicated input
+meets column-parallel work through :meth:`ModelParallel.copy`.
+:func:`softmax_xent` takes ``mp`` and then averages over the global
+batch.
 """
 
 from __future__ import annotations
@@ -147,15 +156,17 @@ class ModelParallel:
     batch_group: Any = None
 
     @classmethod
-    def of(cls, mesh, specs, global_batch: int):
+    def of(cls, mesh, specs, global_batch: int, split_batch: bool = True):
         """This rank of ``mesh`` (a ``DeviceMesh``) for parameters of the
         spec tree ``specs``; ``global_batch`` the batch the caller split
         over the batch axes as ``sharding.batch_specs`` does (whole when
-        they do not divide it)."""
+        they do not divide it, or with ``split_batch`` False: every rank
+        of a batch axis then holds the same batch, as a cohort of
+        ``distributed/fl_parallel.make_fl_round`` does)."""
         sizes = sharding.axis_sizes(mesh)
         ba = sharding.batch_axes(sizes)
         n = sharding.axis_size(sizes, ba)
-        split = global_batch > 1 and global_batch % n == 0
+        split = split_batch and global_batch > 1 and global_batch % n == 0
         group = None
         if split:
             group = (mesh.get_group(ba[0]) if len(ba) == 1
@@ -201,22 +212,42 @@ class ModelParallel:
     def spec(self, key) -> tuple:
         return self.specs[key]
 
-    def gather(self, x: torch.Tensor, spec, keep: dict | None = None):
+    @property
+    def split_axes(self) -> tuple:
+        """The axes whose ranks each work on their own rows of the batch:
+        the batch axes when the batch is split over them, else none."""
+        if self.batch_group is None:
+            return ()
+        return sharding.batch_axes(self.sizes)
+
+    def gather(self, x: torch.Tensor, spec, keep: dict | None = None,
+               split: tuple = ()):
         """``x`` all-gathered along every dim its ``spec`` splits, but the
         dims of ``keep`` ({dim: axis}, dims may count from the end) that
-        stay split over that axis."""
+        stay split over that axis.  Under autograd a gather over an axis of
+        ``split`` or :attr:`split_axes` is ``sharding.GatherSplit`` (each
+        rank uses the leaf on its own share of the work), over any other
+        axis ``sharding.GatherReplicated``."""
         keep = {d % x.dim(): a for d, a in (keep or {}).items()}
         for dim, axis in enumerate(spec):
             if axis is None or keep.get(dim) == axis:
                 continue
             if not isinstance(axis, str):
                 raise ValueError(f"cannot gather over the axes {axis}")
-            x = sharding.all_gather(x, dim, self.groups[axis])
+            x = sharding.gather(x, dim, self.groups[axis],
+                                split=axis in split or axis in
+                                self.split_axes)
         return x
 
-    def leaf(self, p: dict, key, keep: dict | None = None) -> torch.Tensor:
+    def leaf(self, p: dict, key, keep: dict | None = None,
+             split: tuple = ()) -> torch.Tensor:
         """``p[key]`` gathered as :meth:`gather` says, by its spec."""
-        return self.gather(p[key], self.spec(key), keep)
+        return self.gather(p[key], self.spec(key), keep, split)
+
+    def copy(self, x: torch.Tensor) -> torch.Tensor:
+        """``x``, the same on every ``model`` rank, where it enters work
+        split over ``model`` (``sharding.CopyToParallel``)."""
+        return sharding.copy_to_parallel(x, self.group("model"))
 
     def gather_tree(self, tree):
         """Every leaf of ``tree`` (whose specs this is) gathered whole."""
@@ -233,8 +264,8 @@ def _sub(mp: ModelParallel | None, *keys):
 def _row_sum(y: torch.Tensor, mp: ModelParallel) -> torch.Tensor:
     """The row-parallel partial outputs ``y`` summed over ``model`` in
     float32 and rounded once to y's dtype, as one process's matmul rounds
-    its float32 sums (exact at one rank)."""
-    return sharding.all_reduce(y.float(), mp.group("model")).to(y.dtype)
+    its float32 sums (exact at one rank); ``sharding.SumPartials``."""
+    return sharding.sum_partials(y.float(), mp.group("model")).to(y.dtype)
 
 
 def _ax(spec, dim: int):
@@ -540,6 +571,15 @@ def _split_kv_attention(q, kv_cache: dict, cache_pos: int, q_pos, window,
     return sharding.all_reduce(scale * out.float(), grp).to(cdt)
 
 
+def _copied_norms(p: dict, cfg: LMConfig, mp: ModelParallel) -> dict:
+    """``p`` with its qk-norm scales through :meth:`ModelParallel.copy`:
+    applied to this rank's heads or rows, their gradients are partial."""
+    if not cfg.qk_norm:
+        return p
+    return {**p, "q_norm": mp.copy(p["q_norm"]),
+            "k_norm": mp.copy(p["k_norm"])}
+
+
 def _attention_mp(p: dict, x: torch.Tensor, src: torch.Tensor, cfg: LMConfig,
                   positions, kv_cache, cache_pos, window, causal,
                   blockwise: bool, mp: ModelParallel):
@@ -559,23 +599,33 @@ def _attention_mp(p: dict, x: torch.Tensor, src: torch.Tensor, cfg: LMConfig,
 
     if (cfg.shard_attn_batch and blockwise and not cross and window is None
             and dh in HEAD_DIMS and s % mp.m == 0):
+        # each rank works on its own q rows: x, the norms and the gathered
+        # weights collect the ranks' partial gradients (module sharding's
+        # table)
         rows = s // mp.m
         lo = mp.r * rows
-        q, k, v = _qkv(p, x[:, lo:lo + rows], x,
-                       [mp.leaf(p, n) for n in ("wq", "wk", "wv")], h, kv,
+        x = mp.copy(x)
+        q, k, v = _qkv(_copied_norms(p, cfg, mp), x[:, lo:lo + rows], x,
+                       [mp.leaf(p, n, split=("model",))
+                        for n in ("wq", "wk", "wv")], h, kv,
                        cfg, positions[lo:lo + rows], positions)
         if kv_cache is not None:
             _write_cache(kv_cache, k, v, cache_pos, mp)
         out = _context_parallel_flash(
             q.reshape(b, rows, kv, cfg.q_per_kv, dh), k, v, causal, mp)
-        out = out.reshape(b, rows, h * dh).to(cdt) @ mp.leaf(p, "wo").to(cdt)
-        return sharding.all_gather(out, 1, grp), kv_cache
+        out = out.reshape(b, rows, h * dh).to(cdt) @ mp.leaf(
+            p, "wo", split=("model",)).to(cdt)
+        return sharding.gather(out, 1, grp), kv_cache
 
     specs = [mp.spec(n) for n in ("wq", "wk", "wv", "wo")]
     tp = (kv % mp.m == 0 and all(_ax(sp, -1) == "model" for sp in specs[:3])
           and _ax(specs[3], -2) == "model")
     col, row = ({-1: "model"}, {-2: "model"}) if tp else (None, None)
     hl, kvl = (h // mp.m, kv // mp.m) if tp else (h, kv)
+    if tp:                        # this rank's heads: the inputs and norms
+        src = mp.copy(src)        # collect the ranks' partial gradients
+        x = mp.copy(x) if cross else src
+        p = _copied_norms(p, cfg, mp)
     q, k, v = _qkv(p, x, src, [mp.leaf(p, n, col) for n in ("wq", "wk", "wv")],
                    hl, kvl, cfg,
                    *((None, None) if cross else (positions, positions)))
@@ -634,6 +684,8 @@ def mlp_apply(p: dict, x: torch.Tensor, cfg: LMConfig,
         _ax(mp.spec("w_gate"), -1) == _ax(mp.spec("w_up"), -1) == "model"
         and _ax(mp.spec("w_down"), -2) == "model")
     col, row = ({-1: "model"}, {-2: "model"}) if tp else (None, None)
+    if tp:
+        x = mp.copy(x)
     g = F.silu(x @ _leaf(p, "w_gate", mp, col).to(cdt))
     u = x @ _leaf(p, "w_up", mp, col).to(cdt)
     y = (g * u) @ _leaf(p, "w_down", mp, row).to(cdt)
@@ -751,7 +803,7 @@ def moe_apply(p: dict, x: torch.Tensor, cfg: LMConfig,
         slot, keep, cap = _moe_slots_mp(idx, mc, mp)
         sums = torch.stack([probs.sum(0),
                             F.one_hot(idx[:, 0], e).float().sum(0)])
-        sums = sharding.all_reduce(sums, mp.batch_group) / (
+        sums = sharding.sum_partials(sums, mp.batch_group) / (
             t * torch.distributed.get_world_size(mp.batch_group))
         aux = e * (sums[0] * sums[1]).sum() * mc.router_aux_weight
 
@@ -762,9 +814,13 @@ def moe_apply(p: dict, x: torch.Tensor, cfg: LMConfig,
                   for n in ("w_gate", "w_up", "w_down"))
     el = wg.shape[0]                       # this rank's experts e0 + [0, el)
     e0 = mp.r * el if ep else 0
+    w = (gate.reshape(-1) * keep).to(cdt)
+    xe = xt
+    if ep:                 # the dispatch and gates enter this rank's experts
+        xe, w = mp.copy(xt), mp.copy(w)
     tok = torch.arange(t, device=x.device).repeat_interleave(k)
     buf = xt.new_zeros((e * cap + 1, d), dtype=cdt)
-    buf = buf.index_put((slot,), xt[tok].to(cdt))      # row E*cap: dropped
+    buf = buf.index_put((slot,), xe[tok].to(cdt))      # row E*cap: dropped
     ebuf = buf[e0 * cap:(e0 + el) * cap].view(el, cap, d)
     g = F.silu(torch.bmm(ebuf, wg))
     u = torch.bmm(ebuf, wu)
@@ -772,7 +828,6 @@ def moe_apply(p: dict, x: torch.Tensor, cfg: LMConfig,
     # zero rows for the other ranks' experts and the dropped row
     y = torch.cat([y.new_zeros((e0 * cap, d)), y,
                    y.new_zeros(((e - e0 - el) * cap + 1, d))])
-    w = (gate.reshape(-1) * keep).to(cdt)
     out = (y[slot] * w[:, None]).view(t, k, d).sum(1)
     if ep:
         out = _row_sum(out, mp)
@@ -808,7 +863,7 @@ def embed_apply(p: dict, tokens: torch.Tensor, cfg: LMConfig,
     inside = (local >= 0) & (local < n)
     rows = tok[local.clamp(0, n - 1)].to(cfg.compute_dtype)
     rows = torch.where(inside[..., None], rows, rows.new_zeros(()))
-    return sharding.all_reduce(rows, mp.group("model"))
+    return sharding.sum_partials(rows, mp.group("model"))
 
 
 def vocab_logits(x: torch.Tensor, p: dict, key: str, vocab_dim: int,
@@ -821,8 +876,10 @@ def vocab_logits(x: torch.Tensor, p: dict, key: str, vocab_dim: int,
     w = p[key] if mp is None else mp.leaf(
         p, key, {vocab_dim: "model"} if split else None)
     w = w.to(cfg.compute_dtype)
+    if split:
+        x = mp.copy(x)
     logits = x @ (w.T if vocab_dim == 0 else w)
-    return sharding.all_gather(logits, -1, mp.group("model")) if split \
+    return sharding.gather(logits, -1, mp.group("model")) if split \
         else logits
 
 
@@ -834,12 +891,27 @@ def unembed_apply(p: dict, x: torch.Tensor, cfg: LMConfig,
 
 
 def softmax_xent(logits: torch.Tensor, labels: torch.Tensor,
-                 mask: torch.Tensor | None = None) -> torch.Tensor:
-    """Mean cross-entropy in float32; logits [.., V], labels [..] int."""
+                 mask: torch.Tensor | None = None,
+                 mp: ModelParallel | None = None) -> torch.Tensor:
+    """Mean cross-entropy in float32; logits [.., V], labels [..] int.
+
+    With ``mp`` and the batch split over the batch axes, the mean over the
+    global batch: every rank holds an equal share of it, so the mean is the
+    ranks' local means summed (``sharding.SumPartials``) over the number
+    of batch ranks (exact at one rank); a ``mask``'s sums are summed over
+    the ranks before they divide."""
     logits = logits.float()
     logz = torch.logsumexp(logits, dim=-1)
     gold = logits.gather(-1, labels.long()[..., None])[..., 0]
     nll = logz - gold
+    grp = None if mp is None else mp.batch_group
+    if grp is None:
+        if mask is not None:
+            return (nll * mask).sum() / mask.sum().clamp_min(1)
+        return nll.mean()
     if mask is not None:
-        return (nll * mask).sum() / mask.sum().clamp_min(1)
-    return nll.mean()
+        sums = sharding.sum_partials(torch.stack(
+            [(nll * mask).sum(), mask.sum().to(nll.dtype)]), grp)
+        return sums[0] / sums[1].clamp_min(1)
+    return sharding.sum_partials(nll.mean(), grp) \
+        / torch.distributed.get_world_size(grp)

@@ -178,7 +178,7 @@ def _embed_inputs(params: dict, batch: dict, cfg: LMConfig,
             pe = pe @ mp.leaf(params, "patch_proj",
                               {-1: "model"} if split else None).to(cdt)
             if split:
-                pe = sharding.all_gather(pe, -1, mp.group("model"))
+                pe = sharding.gather(pe, -1, mp.group("model"))
         x = torch.cat([pe, x], dim=1)
     return constrain_batch(x, mp)
 
@@ -219,7 +219,8 @@ def loss_fn(params: dict, batch: dict, cfg: LMConfig,
     logits, aux = forward(params, batch, cfg, mp)
     if cfg.family == "vlm":
         logits = logits[:, cfg.n_patches:]
-    return softmax_xent(logits[:, :-1], batch["tokens"][:, 1:]) + aux
+    return softmax_xent(logits[:, :-1], batch["tokens"][:, 1:],
+                        mp=mp) + aux
 
 
 # ---------------------------------------------------------------------------

@@ -30,7 +30,11 @@ tensors and leaves the ones passed in as they were.
 With ``mp`` (a ``layers.ModelParallel``) every entry point gathers each
 leaf the rank holds a block of before using it (a group's leaves as the
 group runs, the rest at the entry) and runs the one-process code on the
-rank's batch rows; the states hold that batch whole over ``model``.
+rank's batch rows; the states hold that batch whole over ``model``.  Under
+autograd a gather over ``model`` takes this rank's slice of the gradient
+back (every model rank does the same work with the gathered leaf), a gather
+over ``data`` (FSDP, the batch split) a reduce-scatter, and the loss is the
+mean over the global batch (``layers.softmax_xent``).
 """
 
 from __future__ import annotations
@@ -400,7 +404,7 @@ def loss_fn(params: dict, batch: dict, cfg: LMConfig,
             mp=None) -> torch.Tensor:
     """Next-token cross-entropy of :func:`forward`."""
     logits, _ = forward(params, batch, cfg, mp)
-    return softmax_xent(logits[:, :-1], batch["tokens"][:, 1:])
+    return softmax_xent(logits[:, :-1], batch["tokens"][:, 1:], mp=mp)
 
 
 def prefill(params: dict, batch: dict, cfg: LMConfig,

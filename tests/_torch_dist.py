@@ -29,6 +29,21 @@ import torch.multiprocessing as mp
 _RUNS = itertools.count()
 
 
+def one_thread():
+    """The body of a fixture each port test module makes autouse and
+    module-scoped: torch on one intra-op thread while the module's tests
+    and fixtures run, the count restored after its last; the fixture's
+    value is that count.  The suite runs six worker processes on eight
+    CPUs; beside them, a pool of intra-op threads turns each of the port's
+    many small CPU ops into a wait."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        yield n
+    finally:
+        torch.set_num_threads(n)
+
+
 def run_ranks(fn, world: int, workdir: Path, *args, timeout: float = 300.0):
     """``[fn(rank, world, *args) for rank in range(world)]``, each call on
     its own gloo rank; ``fn`` is a function of this module."""
@@ -280,4 +295,210 @@ def model_parallel(rank: int, world: int, cases: dict) -> dict:
                            sharding.shard_params(batch, bspecs, mesh),
                            c["max_len"], c["feed"][rows.numpy()], mp)
         out[name]["rows"] = rows.numpy()
+    return out
+
+
+# ---------------------------------------------------------------------------
+# training over a (data, model) mesh (tests/test_torch_mesh_train.py)
+# ---------------------------------------------------------------------------
+
+def _flat(tree) -> dict:
+    from repro_torch.distributed import sharding
+    out = {}
+    sharding.map_with_path(lambda p, x: out.__setitem__(p, x), tree)
+    return out
+
+
+def _numpy_tree(tree) -> dict:
+    return {p: x.detach().float().numpy() for p, x in _flat(tree).items()}
+
+
+def _train_case(c: dict):
+    """(family module's api, cfg, params, batches) of a train case: the
+    reduced ``arch`` in float32 compute (``remat`` as the case says), its
+    parameters from seed 0 and the case's numpy batches."""
+    import dataclasses
+    import functools
+
+    from repro_torch.models import registry
+    fam, cfg = _model_api(c["arch"], "float32")
+    cfg = dataclasses.replace(cfg, remat=c.get("remat", False))
+    api = dataclasses.replace(
+        registry.build(c["arch"], reduced=True), cfg=cfg,
+        loss_fn=functools.partial(fam.loss_fn, cfg=cfg))
+    params = fam.init(torch.Generator().manual_seed(0), cfg)
+    batches = []
+    for b in c["batches"]:
+        b = {k: torch.as_tensor(v) for k, v in b.items()}
+        for k in ("patch_embeds", "frames"):
+            if k in b:                           # drawn in bfloat16
+                b[k] = b[k].to(torch.bfloat16)
+        batches.append(b)
+    return api, cfg, params, batches
+
+
+def _train_run(api, params, batches, mp=None) -> dict:
+    """AdamW steps (lr 3e-4, weight decay 0.1) of ``make_train_step`` on
+    ``batches``: every step's loss; the first step's gradients, its
+    updated parameters and both moments (``first``; this rank's blocks
+    with ``mp``) and its collective calls; and whether that update is
+    bitwise ``opt.update`` of the same blocks and gradients
+    (``own_update``)."""
+    from repro_torch.distributed import sharding
+    from repro_torch.launch.steps import make_train_step, sum_over_batch
+    from repro_torch.launch.steps import value_and_grad
+    from repro_torch.optim.sgd import OptimizerConfig
+    from repro_torch.utils.trees import tree_leaves
+    step, opt = make_train_step(api, OptimizerConfig(
+        name="adamw", lr=3e-4, weight_decay=0.1), mp=mp)
+    loss_fn = api.loss_fn if mp is None else (
+        lambda p, b: api.loss_fn(p, b, mp=mp))
+    _, grads = value_and_grad(loss_fn, params, batches[0])
+    if mp is not None:
+        grads = sum_over_batch(grads, mp)
+    state = opt.init(params)
+    own = opt.update(grads, state, params)      # this block's own update
+    losses, counts = [], None
+    for i, b in enumerate(batches):
+        sharding.reset_collective_counts()
+        params, state, loss = step(params, state, b)
+        if i == 0:
+            counts = {k: v["calls"] for k, v in
+                      sharding.collective_counts.items()}
+            first = {"params": _numpy_tree(params),
+                     "m": _numpy_tree(state["m"]),
+                     "v": _numpy_tree(state["v"])}
+            same = all(torch.equal(x, y) for t, u in (
+                (own[0], params), (own[1]["m"], state["m"]),
+                (own[1]["v"], state["v"]))
+                for x, y in zip(tree_leaves(t), tree_leaves(u)))
+        losses.append(float(loss))
+    return {"losses": losses, "grads": _numpy_tree(grads), "first": first,
+            "own_update": same, "counts": counts}
+
+
+def mesh_train(rank: int, world: int, cases: dict) -> dict:
+    """Each case's AdamW steps (:func:`_train_run`) on a (data, model) mesh
+    of this world: the parameters cut to this rank's blocks by
+    ``param_specs`` (with ``fsdp``), the batches' rows by ``batch_specs``.
+    A case: ``arch``, ``mesh`` (data, model), ``fsdp``, ``remat``,
+    ``batches`` (numpy; bfloat16 ones as float32) and ``reference`` (rank
+    0 also runs the one-process steps).  Returns each case's run, its
+    rank's mesh coordinates and, with ``reference``, the one-process run
+    under ``name + ":reference"``."""
+    from repro_torch.distributed import sharding
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models.layers import ModelParallel
+    out = {}
+    for name, c in cases.items():
+        api, cfg, params, batches = _train_case(c)
+        if c.get("reference") and rank == 0:
+            out[name + ":reference"] = _train_run(api, params, batches)
+        mesh = make_mesh(*c["mesh"], device_type="cpu")
+        pspecs = sharding.param_specs(params, cfg, mesh, fsdp=c["fsdp"])
+        bspecs = sharding.batch_specs(batches[0], mesh)
+        mp = ModelParallel.of(mesh, pspecs,
+                              global_batch=batches[0]["tokens"].shape[0])
+        run = _train_run(api, sharding.shard_params(params, pspecs, mesh),
+                         [sharding.shard_params(b, bspecs, mesh)
+                          for b in batches], mp)
+        run["coords"] = dict(mp.coords)
+        out[name] = run
+    return out
+
+
+def mesh_fl_rounds(rank: int, world: int, params: dict, batches: dict,
+                   weights: np.ndarray, n_steps: int, lr: float,
+                   ratio: float) -> dict:
+    """One ``fl_parallel.make_fl_round`` of every compress mode on a
+    (data, model) = (C, world / C) mesh, C the cohorts of ``weights``:
+    reduced smollm-135m in float32 compute from ``params`` (the JAX
+    package's tree), SGD at ``lr``, this rank's cohort of ``batches``
+    ({"tokens": [C, n_steps, B, S]}).  Returns this rank's mesh
+    coordinates and, by mode, its block of the new global model and the
+    mean loss."""
+    import functools
+
+    from repro_torch import convert
+    from repro_torch.distributed import fl_parallel, sharding
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.optim.sgd import OptimizerConfig
+    fam, cfg = _model_api("smollm-135m", "float32")
+    n = weights.shape[0]
+    mesh = make_mesh(n, world // n, device_type="cpu")
+    p0 = convert.lm_params_from_tree(params)
+    pspecs = sharding.param_specs(p0, cfg, mesh, fsdp=False)
+    sspecs = fl_parallel.stacked_param_specs(pspecs, mesh)
+    mine = sharding.shard_params(p0, pspecs, mesh)
+    coords = sharding.mesh_coords(mesh)
+    toks = torch.as_tensor(batches["tokens"][coords["data"]:
+                                             coords["data"] + 1])
+    opt = OptimizerConfig(name="sgd", lr=lr, lr_decay=0.0).build()
+    out = {"coords": coords}
+    for mode in fl_parallel.COMPRESS:
+        fl_round = fl_parallel.make_fl_round(
+            functools.partial(fam.loss_fn, cfg=cfg), opt, n_steps, mesh,
+            sspecs, compress=mode, topk_ratio=ratio)
+        states = fl_parallel.init_cohort_states(
+            opt, fl_parallel.stack_for_cohorts(mine, 1))
+        new, _, loss = fl_round(mine, states, {"tokens": toks},
+                                torch.as_tensor(weights))
+        out[mode] = (_numpy_tree(new), float(loss))
+    return out
+
+
+def collective_functions(rank: int, world: int, seed: int) -> dict:
+    """Each autograd collective of ``distributed/sharding.py`` on this
+    rank, in float64 on integer-valued inputs (every sum exact in any
+    order), drawn from ``seed`` for all ranks at once so the parent can
+    rebuild them: the output, the input's gradient under this rank's
+    upstream gradient, the output's ``grad_fn`` class name, the collective
+    calls of the forward and of the backward, and the output with no
+    gradient tracked."""
+    from repro_torch.distributed import sharding
+    rng = np.random.default_rng(seed)
+    xs = rng.integers(-8, 9, (world, 3, 4)).astype(np.float64)
+    cs = rng.integers(-8, 9, (world, 3, 4 * world)).astype(np.float64)
+    grp = dist.group.WORLD
+    calls = lambda: {k: v["calls"] for k, v in
+                     sharding.collective_counts.items()}
+    cases = {
+        "sum_partials": (lambda x: sharding.sum_partials(x, grp), xs[rank],
+                         cs[0, :, :4]),
+        "copy_to_parallel": (lambda x: sharding.copy_to_parallel(x, grp),
+                             xs[0], cs[rank, :, :4]),
+        "gather_replicated": (lambda x: sharding.gather(x, 1, grp), xs[rank],
+                              cs[0]),
+        "gather_split": (lambda x: sharding.gather(x, 1, grp, split=True),
+                         xs[rank], cs[rank]),
+        "gather_split_rows": (lambda x: sharding.gather(x, 0, grp,
+                                                        split=True),
+                              xs[rank], cs[rank].reshape(3 * world, 4)),
+    }
+    out = {}
+    for name, (fn, x, c) in cases.items():
+        x = torch.tensor(x, requires_grad=True)
+        sharding.reset_collective_counts()
+        y = fn(x)
+        fwd = calls()
+        sharding.reset_collective_counts()
+        (y * torch.as_tensor(c)).sum().backward()
+        bwd = calls()
+        with torch.no_grad():
+            plain = fn(x.detach().clone())
+        out[name] = {"y": y.detach().numpy(), "grad": x.grad.numpy(),
+                     "grad_fn": type(y.grad_fn).__name__,
+                     "forward_calls": fwd, "backward_calls": bwd,
+                     "no_grad": plain.numpy()}
+    return out
+
+
+def mesh_checks(rank: int, world: int, seed: int, train: dict,
+                fl: tuple | None = None) -> dict:
+    """:func:`collective_functions`, :func:`mesh_train` and (with ``fl``
+    the arguments after ``world``) :func:`mesh_fl_rounds` in one run."""
+    out = {"functions": collective_functions(rank, world, seed),
+           "train": mesh_train(rank, world, train)}
+    if fl is not None:
+        out["fl"] = mesh_fl_rounds(rank, world, *fl)
     return out

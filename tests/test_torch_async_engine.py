@@ -38,6 +38,10 @@ from repro_torch.checkpoint.ckpt import CheckpointManager  # noqa: E402
 from repro_torch.core import bandit  # noqa: E402
 from repro_torch.sim import async_engine as ae  # noqa: E402
 from repro_torch.sim import engine, scenarios  # noqa: E402
+import _torch_dist  # noqa: E402
+
+one_thread = pytest.fixture(autouse=True, scope="module")(
+    _torch_dist.one_thread)
 
 RTOL = 1e-6
 CHURN_RTOL = 1e-5

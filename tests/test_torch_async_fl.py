@@ -35,6 +35,10 @@ from repro_torch.fl import engine  # noqa: E402
 from repro_torch.kernels import ops  # noqa: E402
 from repro_torch.sim import async_engine as ae  # noqa: E402
 from repro_torch.utils.trees import FlatSpec, flatten  # noqa: E402
+import _torch_dist  # noqa: E402
+
+one_thread = pytest.fixture(autouse=True, scope="module")(
+    _torch_dist.one_thread)
 
 TASK = dict(n_clients=12, n_train=600, n_test=400, eval_batch=200,
             max_samples=40, batch_size=10)

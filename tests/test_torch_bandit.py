@@ -20,6 +20,10 @@ from _torch_parity import (assert_states_match, jax_tree,  # noqa: E402
 from repro.core import bandit_jax  # noqa: E402
 from repro_torch import convert  # noqa: E402
 from repro_torch.core import bandit  # noqa: E402
+import _torch_dist  # noqa: E402
+
+one_thread = pytest.fixture(autouse=True, scope="module")(
+    _torch_dist.one_thread)
 
 K, G, S = 64, 3, 5
 RTOL = 1e-6

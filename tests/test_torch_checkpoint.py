@@ -31,6 +31,10 @@ from repro_torch.checkpoint import ckpt  # noqa: E402
 from repro_torch.checkpoint.ckpt import CheckpointManager  # noqa: E402
 from repro_torch.core import bandit  # noqa: E402
 from repro_torch.sim import async_engine as ae  # noqa: E402
+import _torch_dist  # noqa: E402
+
+one_thread = pytest.fixture(autouse=True, scope="module")(
+    _torch_dist.one_thread)
 
 
 @pytest.fixture(scope="module", autouse=True)

@@ -23,6 +23,10 @@ from _torch_parity import SMALL_CNN, TWO_POOL_CNN, cnn_configs  # noqa: E402
 from repro.models import cnn as jcnn  # noqa: E402
 from repro_torch import convert  # noqa: E402
 from repro_torch.models import cnn  # noqa: E402
+import _torch_dist  # noqa: E402
+
+one_thread = pytest.fixture(autouse=True, scope="module")(
+    _torch_dist.one_thread)
 
 CASES = {"small-bn": (SMALL_CNN, True), "small": (SMALL_CNN, False),
          "two-pool-bn": (TWO_POOL_CNN, True)}

@@ -18,6 +18,10 @@ import jax.numpy as jnp  # noqa: E402
 
 from repro.distributed import compression as jc  # noqa: E402
 from repro_torch.distributed import compression as tc  # noqa: E402
+import _torch_dist  # noqa: E402
+
+one_thread = pytest.fixture(autouse=True, scope="module")(
+    _torch_dist.one_thread)
 
 
 def _inputs():

@@ -36,6 +36,10 @@ from repro_torch.distributed import sharding  # noqa: E402
 from repro_torch.fl import engine as fl  # noqa: E402
 from repro_torch.models import cnn  # noqa: E402
 from repro_torch.sim import engine  # noqa: E402
+import _torch_dist  # noqa: E402
+
+one_thread = pytest.fixture(autouse=True, scope="module")(
+    _torch_dist.one_thread)
 
 SWEEP = dict(n_rounds=6, seeds=3, etas=(1.0, 1.5), n_clients=64,
              frac_request=0.25)

@@ -1,7 +1,7 @@
 """The port's dry run (launch/dryrun.py): one rank's sharded program on
 ``meta`` tensors inside a fake process group of the mesh's world size.
 
-One reduced cell of each kind — smollm-135m train_4k (the forward), its
+One reduced cell of each kind — smollm-135m train_4k (an AdamW step), its
 prefill_32k, qwen3-1.7b decode_32k — and recurrentgemma-9b decode_32k
 (whose states the program holds batch-split and whole over ``model``) on
 a fake 2 x 4 mesh, as tests/test_dryrun_smoke.py does for the JAX
@@ -31,6 +31,10 @@ from repro_torch.launch import dryrun  # noqa: E402
 from repro_torch.launch.mesh import production_shapes  # noqa: E402
 from repro_torch.launch.steps import build_cell  # noqa: E402
 from repro_torch.models.registry import build  # noqa: E402
+import _torch_dist  # noqa: E402
+
+one_thread = pytest.fixture(autouse=True, scope="module")(
+    _torch_dist.one_thread)
 
 CELLS = [("smollm-135m", "train_4k"), ("smollm-135m", "prefill_32k"),
          ("qwen3-1.7b", "decode_32k"), ("recurrentgemma-9b", "decode_32k")]
@@ -91,7 +95,7 @@ def test_reduced_cells_on_a_fake_mesh(tmp_path):
     proc = subprocess.run(
         [sys.executable, "-c", SCRIPT, json.dumps(CELLS)],
         env={"PYTHONPATH": src, "PATH": "/usr/bin:/bin:/usr/local/bin",
-             "HOME": str(tmp_path)},
+             "HOME": str(tmp_path), "OMP_NUM_THREADS": "1"},
         capture_output=True, text=True, timeout=600)
     assert proc.returncode == 0, proc.stderr[-3000:]
     out = json.loads(proc.stdout.strip().splitlines()[-1])

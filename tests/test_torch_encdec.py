@@ -43,6 +43,10 @@ from repro_torch.launch import steps as tsteps  # noqa: E402
 from repro_torch.models import encdec as te  # noqa: E402
 from repro_torch.models import layers as tl  # noqa: E402
 from repro_torch.utils.trees import tree_leaves  # noqa: E402
+import _torch_dist  # noqa: E402
+
+one_thread = pytest.fixture(autouse=True, scope="module")(
+    _torch_dist.one_thread)
 
 TOL = {"float32": dict(rtol=1e-5, atol=1e-5),
        "bfloat16": dict(rtol=2e-2, atol=8e-2)}
@@ -51,17 +55,6 @@ CACHE_TOL = {"float32": dict(rtol=1e-5, atol=5e-5),
 GRAD_RL2 = 1e-5
 DTYPES = {"float32": (jnp.float32, torch.float32),
           "bfloat16": (jnp.bfloat16, torch.bfloat16)}
-
-
-@pytest.fixture(autouse=True)
-def _one_thread():
-    """The port's many small CPU ops on one intra-op thread, restored after
-    each test: beside the suite's other worker processes, a pool of idle
-    threads turns each small op into a wait (this file ran ~10x slower)."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _np(x):

@@ -24,6 +24,10 @@ from repro.kernels import fedavg as jfedavg  # noqa: E402
 from repro_torch.fl import aggregation  # noqa: E402
 from repro_torch.fl import engine  # noqa: E402
 from repro_torch.kernels import ops, ref  # noqa: E402
+import _torch_dist  # noqa: E402
+
+one_thread = pytest.fixture(autouse=True, scope="module")(
+    _torch_dist.one_thread)
 
 TORCH_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 JAX_DTYPES = {"float32": jnp.float32, "bfloat16": jnp.bfloat16}

@@ -18,6 +18,10 @@ from repro_torch.data import partition, synthetic  # noqa: E402
 from repro_torch.fl import engine, metrics  # noqa: E402
 from repro_torch.models import cnn  # noqa: E402
 from repro_torch.optim import sgd  # noqa: E402
+import _torch_dist  # noqa: E402
+
+one_thread = pytest.fixture(autouse=True, scope="module")(
+    _torch_dist.one_thread)
 
 
 @pytest.mark.parametrize("seed,size", [(0, 8), (3, 32)])

@@ -42,6 +42,10 @@ from repro_torch.core import bandit  # noqa: E402
 from repro_torch.fl import engine  # noqa: E402
 from repro_torch.sim import engine as sim  # noqa: E402
 from repro_torch.utils.trees import FlatSpec, flatten  # noqa: E402
+import _torch_dist  # noqa: E402
+
+one_thread = pytest.fixture(autouse=True, scope="module")(
+    _torch_dist.one_thread)
 
 RUN = dict(s_round=3, epochs=2, batch_size=10)
 TASK = dict(n_clients=12, n_train=600, n_test=400, eval_batch=200,
@@ -142,7 +146,19 @@ TRAIN_CASES = [("all", False, False), ("selected", False, False),
 @pytest.mark.parametrize("cohort,failure,bn", TRAIN_CASES,
                          ids=["all", "selected", "all-flags",
                               "selected-flags", "selected-bn"])
-def test_train_round_matches_jax(tasks, presample, cohort, failure, bn):
+def test_train_round_matches_jax(tasks, presample, one_thread, cohort,
+                                 failure, bn):
+    # BatchNorm carries the convolutions' float32 rounding, which depends
+    # on how many threads split their sums: its limit was read at the
+    # process's own thread count, so the BN case runs there
+    torch.set_num_threads(one_thread if bn else 1)
+    try:
+        _train_round_matches_jax(tasks, presample, cohort, failure, bn)
+    finally:
+        torch.set_num_threads(1)
+
+
+def _train_round_matches_jax(tasks, presample, cohort, failure, bn):
     jt, tt = tasks
     jcfg, cfg = cnn_configs(SMALL_CNN, bn)
     native = jengine._native_perm_auto(jt)

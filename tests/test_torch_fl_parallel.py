@@ -41,6 +41,10 @@ from _torch_dist import cohort_checks, run_ranks  # noqa: E402
 from repro.models import cnn as jcnn  # noqa: E402
 from repro_torch import convert  # noqa: E402
 from repro_torch.distributed import fl_parallel  # noqa: E402
+import _torch_dist  # noqa: E402
+
+one_thread = pytest.fixture(autouse=True, scope="module")(
+    _torch_dist.one_thread)
 
 C, STEPS, BATCH, LR, RATIO = 4, 2, 8, 0.1, 0.05
 WEIGHTS = np.array([1.0, 0.0, 2.0, 1.0], np.float32)
@@ -132,7 +136,9 @@ def runs(tmp_path_factory):
          str(tmp / "out.npz"), json.dumps(SMALL_CNN)],
         env={"PYTHONPATH": src, "PATH": "/usr/bin:/bin:/usr/local/bin",
              "HOME": str(tmp), "JAX_PLATFORMS": "cpu",
-             "XLA_FLAGS": "--xla_force_host_platform_device_count=4"},
+             "XLA_FLAGS": "--xla_force_host_platform_device_count=4 "
+                          "--xla_cpu_multi_thread_eigen=false "
+                          "intra_op_parallelism_threads=1"},
         capture_output=True, text=True, timeout=600)
     assert proc.returncode == 0, proc.stderr[-3000:]
     jx = dict(np.load(tmp / "out.npz"))

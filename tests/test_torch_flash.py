@@ -29,6 +29,10 @@ from repro.models import layers as jlayers  # noqa: E402
 from repro_torch.kernels import flash_attention as tflash  # noqa: E402
 from repro_torch.kernels import ops, ref  # noqa: E402
 from repro_torch.models import layers as tlayers  # noqa: E402
+import _torch_dist  # noqa: E402
+
+one_thread = pytest.fixture(autouse=True, scope="module")(
+    _torch_dist.one_thread)
 
 TOL = {"float32": dict(rtol=2e-5, atol=1e-5),
        "bfloat16": dict(rtol=2e-2, atol=2e-2)}

@@ -26,6 +26,10 @@ torch = pytest.importorskip("torch")
 
 from repro_torch.kernels import flash_attention as tflash  # noqa: E402
 from repro_torch.kernels import ref  # noqa: E402
+import _torch_dist  # noqa: E402
+
+one_thread = pytest.fixture(autouse=True, scope="module")(
+    _torch_dist.one_thread)
 
 CSRC = (Path(__file__).resolve().parents[1] / "src" / "repro_torch"
         / "kernels" / "csrc" / "flash_attention.cu")

@@ -42,6 +42,10 @@ from repro_torch.convert import lm_params_from_tree  # noqa: E402
 from repro_torch.launch import serve  # noqa: E402
 from repro_torch.models import griffin as tg  # noqa: E402
 from repro_torch.models import registry as treg  # noqa: E402
+import _torch_dist  # noqa: E402
+
+one_thread = pytest.fixture(autouse=True, scope="module")(
+    _torch_dist.one_thread)
 
 TOL = {"float32": dict(rtol=1e-5, atol=1e-5),
        "bfloat16": dict(rtol=2e-2, atol=5e-2)}

@@ -35,6 +35,10 @@ from repro_torch import convert  # noqa: E402
 from repro_torch.core import bandit  # noqa: E402
 from repro_torch.sim import engine, scenarios  # noqa: E402
 from repro_torch.sim.scenarios import Scenario  # noqa: E402
+import _torch_dist  # noqa: E402
+
+one_thread = pytest.fixture(autouse=True, scope="module")(
+    _torch_dist.one_thread)
 
 BITS = np.float32(146.4e6)
 

@@ -28,6 +28,10 @@ from repro_torch.fl import server as tsrv
 from repro_torch.sim import network as tnet
 from repro_torch.sim import resources as tres
 from repro_torch.sim import scenarios as tscen
+import _torch_dist  # noqa: E402
+
+one_thread = pytest.fixture(autouse=True, scope="module")(
+    _torch_dist.one_thread)
 
 POLICIES = ("fedcs", "extended_fedcs", "naive_ucb", "elementwise_ucb",
             "random", "oracle", "discounted_ucb", "sliding_ucb")

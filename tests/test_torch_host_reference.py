@@ -30,6 +30,10 @@ from repro.fl import engine as jengine  # noqa: E402
 from repro_torch import convert  # noqa: E402
 from repro_torch.core import bandit  # noqa: E402
 from repro_torch.fl import engine  # noqa: E402
+import _torch_dist  # noqa: E402
+
+one_thread = pytest.fixture(autouse=True, scope="module")(
+    _torch_dist.one_thread)
 
 RUN = dict(s_round=3, epochs=2, batch_size=10)
 TASK = dict(n_clients=12, n_train=600, n_test=400, eval_batch=200,

@@ -1,7 +1,8 @@
 """The port stands alone: nothing under src/repro_torch/ and nothing in
-chip_smoke.py imports JAX or the JAX package ``repro``, so the port runs on
-a machine that has neither.  tests/_torch_dist.py, whose functions run in
-spawned ranks, imports neither either."""
+chip_smoke.py or the port's harnesses (benchmarks/torch_*.py) imports JAX
+or the JAX package ``repro``, so the port runs on a machine that has
+neither.  tests/_torch_dist.py, whose functions run in spawned ranks,
+imports neither either."""
 
 import ast
 from pathlib import Path
@@ -12,7 +13,8 @@ pytest.importorskip("torch")
 
 ROOT = Path(__file__).resolve().parents[1]
 FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
-    ROOT / "chip_smoke.py", ROOT / "tests" / "_torch_dist.py"]
+    ROOT / "chip_smoke.py", ROOT / "tests" / "_torch_dist.py"] + sorted(
+    (ROOT / "benchmarks").glob("torch_*.py"))
 FORBIDDEN = ("jax", "jaxlib", "repro")
 
 

@@ -36,6 +36,10 @@ from _torch_parity import (mid_run_tree, sorted_candidates,  # noqa: E402
 from repro_torch.core import bandit  # noqa: E402
 from repro_torch.kernels import fedavg  # noqa: E402
 from repro_torch.sim.truncnorm import truncnorm_transform  # noqa: E402
+import _torch_dist  # noqa: E402
+
+one_thread = pytest.fixture(autouse=True, scope="module")(
+    _torch_dist.one_thread)
 
 CSRC = Path(fedavg.__file__).resolve().parent / "csrc"
 N_CNN = 4_583_146

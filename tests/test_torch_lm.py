@@ -54,6 +54,10 @@ from repro_torch.models import transformer as tt  # noqa: E402
 from repro_torch.sim import engine as tengine  # noqa: E402
 from repro_torch.sim.scenarios import get_scenario  # noqa: E402
 from repro_torch.utils.trees import tree_leaves  # noqa: E402
+import _torch_dist  # noqa: E402
+
+one_thread = pytest.fixture(autouse=True, scope="module")(
+    _torch_dist.one_thread)
 
 TOL = {"float32": dict(rtol=1e-5, atol=1e-5),
        "bfloat16": dict(rtol=2e-2, atol=3e-2)}

@@ -5,6 +5,11 @@ package's own sharded runs.
 Reduced smollm-135m, qwen3-1.7b, phi3.5-moe, llava-next-34b (with
 ``shard_attn_batch``, as its full config: at S = 1024 its prefill takes the
 context-parallel route, each model rank attending with its q rows and
+import _torch_dist  # noqa: E402
+
+
+one_thread = pytest.fixture(autouse=True, scope="module")(
+    _torch_dist.one_thread)
 ``q_offset``), recurrentgemma-9b, xlstm-1.3b and seamless-m4t-medium, each
 in float32 and bfloat16 compute, on (data, model) meshes (1, 2) and
 (2, 1) of 2 ranks and (2, 2) of 4, phi3.5-moe and llava with FSDP too.
@@ -54,6 +59,10 @@ from _torch_dist import _model_api, model_parallel, run_ranks  # noqa: E402
 from repro_torch.distributed import sharding  # noqa: E402
 from repro_torch.launch import serve  # noqa: E402
 from repro_torch.models import registry  # noqa: E402
+import _torch_dist  # noqa: E402
+
+one_thread = pytest.fixture(autouse=True, scope="module")(
+    _torch_dist.one_thread)
 
 ARCHS = ("smollm-135m", "qwen3-1.7b", "phi3.5-moe-42b-a6.6b",
          "llava-next-34b", "recurrentgemma-9b", "xlstm-1.3b",
@@ -110,7 +119,8 @@ def _attention(cfg, m: int, *, cache: bool, s: int, prefill: bool,
                cross: bool = False) -> dict:
     from repro_torch.models.layers import HEAD_DIMS, _flash_ok
     blockwise = s > 1 and _flash_ok(s, s)
-    c = {"all_reduce": 0, "all_reduce_max": 0, "all_gather": 0}
+    c = {"all_reduce": 0, "all_reduce_max": 0, "all_gather": 0,
+         "reduce_scatter": 0}
     if (cfg.shard_attn_batch and prefill and blockwise and not cross
             and cfg.head_dim in HEAD_DIMS and s % m == 0):
         c["all_gather"] += 4 + 1          # the four weights, the output
@@ -136,12 +146,13 @@ def predicted(cfg, m: int, s: int) -> tuple[dict, dict]:
     of a dense, moe, vlm or enc-dec model (no FSDP, a batch the data axis
     divides, every split dim divisible by m), by the routes of
     models/layers.py."""
-    zero = {"all_reduce": 0, "all_reduce_max": 0, "all_gather": 0}
-    head = {"all_reduce": 1, "all_reduce_max": 0, "all_gather": 1}
+    zero = {"all_reduce": 0, "all_reduce_max": 0, "all_gather": 0,
+            "reduce_scatter": 0}
+    head = dict(zero, all_reduce=1, all_gather=1)
     ffn = dict(zero, all_reduce=1)            # TP MLP
     if cfg.moe is not None:                   # routing, aux, experts
-        ffn = {"all_reduce": 2 + bool(cfg.moe.n_shared),
-               "all_reduce_max": 0, "all_gather": 1}
+        ffn = dict(zero, all_reduce=2 + bool(cfg.moe.n_shared),
+                   all_gather=1)
     out = []
     for prefill in (True, False):
         n = s if prefill else 1
@@ -177,7 +188,8 @@ def predicted_gathers(cfg, mesh) -> dict:
                                                 "slstm") else 1
         n += groups * sum(sum(a is not None for a in spec)
                           for spec in sharding.spec_leaves(sub))
-    return {"all_reduce": 0, "all_reduce_max": 0, "all_gather": n}
+    return {"all_reduce": 0, "all_reduce_max": 0, "all_gather": n,
+            "reduce_scatter": 0}
 
 
 # ---------------------------------------------------------------------------
@@ -209,7 +221,9 @@ def jax_sharded(tmp_path_factory):
            for arch, c in cases.items()],
         env={"PYTHONPATH": src, "PATH": "/usr/bin:/bin:/usr/local/bin",
              "HOME": str(tmp), "JAX_PLATFORMS": "cpu",
-             "XLA_FLAGS": "--xla_force_host_platform_device_count=4"},
+             "XLA_FLAGS": "--xla_force_host_platform_device_count=4 "
+                          "--xla_cpu_multi_thread_eigen=false "
+                          "intra_op_parallelism_threads=1"},
         capture_output=True, text=True, timeout=600)
     assert proc.returncode == 0, proc.stderr[-3000:]
     out = {}

@@ -16,6 +16,10 @@ from repro.optim import sgd as jopt
 from repro_torch import convert
 from repro_torch.optim import sgd as topt
 from repro_torch.utils import trees
+import _torch_dist  # noqa: E402
+
+one_thread = pytest.fixture(autouse=True, scope="module")(
+    _torch_dist.one_thread)
 
 RTOL, ATOL = 1e-6, 1e-7
 SHAPES = {"a": (7,), "b": {"w": (3, 5), "v": {"z": (2, 2, 3)}}, "c": ()}

@@ -31,6 +31,10 @@ from repro_torch.distributed import sharding as tsh  # noqa: E402
 from repro_torch.launch import mesh as tmesh  # noqa: E402
 from repro_torch.launch.steps import build_cell  # noqa: E402
 from repro_torch.models.registry import build as tbuild  # noqa: E402
+import _torch_dist  # noqa: E402
+
+one_thread = pytest.fixture(autouse=True, scope="module")(
+    _torch_dist.one_thread)
 
 MESHES = tmesh.production_shapes()
 

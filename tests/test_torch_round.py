@@ -33,6 +33,10 @@ from repro_torch.core import bandit  # noqa: E402
 from repro_torch.kernels import bandit_round as cuda_round  # noqa: E402
 from repro_torch.kernels import ops  # noqa: E402
 from repro_torch.sim.scenarios import get_scenario  # noqa: E402
+import _torch_dist  # noqa: E402
+
+one_thread = pytest.fixture(autouse=True, scope="module")(
+    _torch_dist.one_thread)
 
 K, C, S, G, R = 48, 12, 4, 2, 30
 ETAS = np.array([1.0, 1.9], np.float32)

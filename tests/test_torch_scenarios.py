@@ -6,6 +6,10 @@ import dataclasses
 
 import numpy as np
 import pytest
+import _torch_dist  # noqa: E402
+
+one_thread = pytest.fixture(autouse=True, scope="module")(
+    _torch_dist.one_thread)
 
 pytest.importorskip("torch")
 

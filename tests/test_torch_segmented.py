@@ -39,6 +39,10 @@ from repro_torch.core import bandit  # noqa: E402
 from repro_torch.distributed import sharding  # noqa: E402
 from repro_torch.kernels import ops, ref  # noqa: E402
 from repro_torch.sim import engine, scenarios  # noqa: E402
+import _torch_dist  # noqa: E402
+
+one_thread = pytest.fixture(autouse=True, scope="module")(
+    _torch_dist.one_thread)
 
 BIG = np.float32(bandit.BIG)
 BITS = np.float32(146.4e6)

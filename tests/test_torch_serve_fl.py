@@ -22,6 +22,10 @@ from repro.sim import async_engine as jae  # noqa: E402
 from repro_torch.checkpoint.ckpt import CheckpointManager  # noqa: E402
 from repro_torch.launch import serve_fl  # noqa: E402
 from repro_torch.sim import async_engine as ae  # noqa: E402
+import _torch_dist  # noqa: E402
+
+one_thread = pytest.fixture(autouse=True, scope="module")(
+    _torch_dist.one_thread)
 
 FIELDS = dict(n_slots=16, buffer_size=3, max_staleness=6, s_dispatch=4,
               n_req=8, arrival_rate=3.0)

@@ -37,6 +37,10 @@ from repro_torch import convert  # noqa: E402
 from repro_torch.core import bandit  # noqa: E402
 from repro_torch.sim import engine, scenarios  # noqa: E402
 from repro_torch.sim.truncnorm import truncnorm_transform_np  # noqa: E402
+import _torch_dist  # noqa: E402
+
+one_thread = pytest.fixture(autouse=True, scope="module")(
+    _torch_dist.one_thread)
 
 DETERMINISTIC = [p for p in bandit.POLICY_NAMES if p != "random"]
 BITS = np.float32(146.4e6)

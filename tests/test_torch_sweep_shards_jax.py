@@ -43,6 +43,10 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from _torch_dist import replayed_sweeps, run_ranks  # noqa: E402
+import _torch_dist  # noqa: E402
+
+one_thread = pytest.fixture(autouse=True, scope="module")(
+    _torch_dist.one_thread)
 
 BASE = dict(etas=(1.0, 1.5), seeds=3, n_rounds=6, n_clients=64,
             frac_request=0.25, fast_sampling=True, devices=4)
@@ -130,7 +134,9 @@ def jax_runs(tmp_path_factory):
          str(tmp / "out.npz")],
         env={"PYTHONPATH": src, "PATH": "/usr/bin:/bin:/usr/local/bin",
              "HOME": str(tmp), "JAX_PLATFORMS": "cpu",
-             "XLA_FLAGS": "--xla_force_host_platform_device_count=4"},
+             "XLA_FLAGS": "--xla_force_host_platform_device_count=4 "
+                          "--xla_cpu_multi_thread_eigen=false "
+                          "intra_op_parallelism_threads=1"},
         capture_output=True, text=True, timeout=600)
     assert proc.returncode == 0, proc.stderr[-3000:]
     out = dict(np.load(tmp / "out.npz"))

@@ -33,6 +33,10 @@ import jax.numpy as jnp  # noqa: E402
 from repro.kernels import ref as jref  # noqa: E402
 from repro_torch.kernels import ref  # noqa: E402
 from repro_torch.kernels import topk_slots  # noqa: E402
+import _torch_dist  # noqa: E402
+
+one_thread = pytest.fixture(autouse=True, scope="module")(
+    _torch_dist.one_thread)
 
 CSRC = Path(topk_slots.__file__).resolve().parent / "csrc" / "topk_slots.cu"
 NONE = (0, 0xFFFFFFFF)

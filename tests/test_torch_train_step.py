@@ -52,6 +52,10 @@ from repro_torch.models import griffin as tg  # noqa: E402
 from repro_torch.models import registry as treg  # noqa: E402
 from repro_torch.optim.sgd import OptimizerConfig as TOptCfg  # noqa: E402
 from repro_torch.utils.trees import tree_leaves  # noqa: E402
+import _torch_dist  # noqa: E402
+
+one_thread = pytest.fixture(autouse=True, scope="module")(
+    _torch_dist.one_thread)
 
 ADAMW = dict(name="adamw", lr=3e-4, weight_decay=0.1)
 DTYPES = {"float32": (jnp.float32, torch.float32),

@@ -47,6 +47,10 @@ from repro_torch.fl import cnn_trainer as tcnn_trainer  # noqa: E402
 from repro_torch.fl import lm_trainer as tlm_trainer  # noqa: E402
 from repro_torch.launch import train as ttrain  # noqa: E402
 from repro_torch.utils.trees import tree_leaves  # noqa: E402
+import _torch_dist  # noqa: E402
+
+one_thread = pytest.fixture(autouse=True, scope="module")(
+    _torch_dist.one_thread)
 
 
 def _rel(a, b) -> float:

@@ -22,6 +22,10 @@ from repro.kernels import ref as jax_ref  # noqa: E402
 from repro.sim import truncnorm as jax_truncnorm  # noqa: E402
 from repro_torch.kernels import ref  # noqa: E402
 from repro_torch.sim import truncnorm  # noqa: E402
+import _torch_dist  # noqa: E402
+
+one_thread = pytest.fixture(autouse=True, scope="module")(
+    _torch_dist.one_thread)
 
 
 def _ulps(a: np.ndarray, b: np.ndarray) -> np.ndarray:

@@ -28,6 +28,10 @@ from repro.kernels import ref as jref  # noqa: E402
 from repro.kernels.ucb_score import ucb_scores as jucb_pallas  # noqa: E402
 from repro_torch.core import bandit  # noqa: E402
 from repro_torch.kernels import ops, ref  # noqa: E402
+import _torch_dist  # noqa: E402
+
+one_thread = pytest.fixture(autouse=True, scope="module")(
+    _torch_dist.one_thread)
 
 G, K, C, S = 3, 150, 30, 5
 

@@ -43,23 +43,16 @@ from repro_torch.models import layers as tl  # noqa: E402
 from repro_torch.models import registry as treg  # noqa: E402
 from repro_torch.models import xlstm as tx  # noqa: E402
 from repro_torch.utils.trees import tree_leaves  # noqa: E402
+import _torch_dist  # noqa: E402
+
+one_thread = pytest.fixture(autouse=True, scope="module")(
+    _torch_dist.one_thread)
 
 TOL = dict(rtol=1e-4, atol=1e-3)
 STATE_TOL = dict(rtol=1e-4, atol=2e-4)      # atol of the largest entry
 GRAD_RL2 = 5e-4
 DTYPES = {"float32": (jnp.float32, torch.float32),
           "bfloat16": (jnp.bfloat16, torch.bfloat16)}
-
-
-@pytest.fixture(autouse=True)
-def _one_thread():
-    """The port's many small CPU ops on one intra-op thread, restored after
-    each test: beside the suite's other worker processes, a pool of idle
-    threads turns each small op into a wait (this file ran ~10x slower)."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def BF16_BUDGET(jax_distance: float) -> float:
