@@ -21,9 +21,8 @@ else.  Phases (every mismatch raises, so any failure exits non-zero):
      torch.profiler's device time, beside the plain version and the
      bound).
   3. ``sweep("paper-baseline")`` at K=100: 8 policies x eta (1.0, 1.5, 1.9)
-     x 8 seeds x 500 rounds through the legacy kernel, plus a small run
-     fed the same draws on the card and on the CPU (plain path), which must
-     agree.
+     x 8 seeds x 500 rounds through the legacy kernel (its draws through
+     the threefry kernel, as in every sweep below).
   4. the streamed-sampling path at K=10^4 (8 policies x 8 seeds x 500
      rounds) and ``flaky-clients`` with a round deadline.
   5. ``metro-congestion`` at K=10^5 (C=10^4 candidates): 8 policies x 1
@@ -71,9 +70,10 @@ else.  Phases (every mismatch raises, so any failure exits non-zero):
      (8 x 2 x 20) against the flat unfused sweep (kernel #2 refuses
      C=10^5): round times (and flags) bitwise equal; state bytes per
      block, the draw against the round, a torch.profiler breakdown.
- 11. the hierarchical rounds on the card against the CPU on the same
-     CPU-made draws (metro-congestion, K=10^5, 10 of 100 cells with 1000
-     and with 300 candidates each, 8 policies x 10 rounds): cell
+ 11. the hierarchical rounds on the card against the CPU from the same
+     seeds, each drawing on its own device (metro-congestion, K=10^5, 10 of
+     100 cells with 1000 and with 300 candidates each, 8 policies x 10
+     rounds): cell
      selections, candidates, selections and cell counts equal, round
      times and cell sums within rtol 1e-5; the hierarchical sweep at
      K=10^5 (10 of 100 cells, 1000 candidates each) beside phase 5's flat
@@ -121,8 +121,8 @@ else.  Phases (every mismatch raises, so any failure exits non-zero):
      the CPU from the same CPU-made draws: selections and counters exact,
      times and state within rtol 1e-5, the UCB-score kernel launched once
      a tick under naive_ucb and never otherwise; (b)
-     ``launch/serve_fl.run_serving`` on the card at K=10^4, 4000 ticks in
-     segments of 500 through the checkpoint manager, stopped after 3
+     ``launch/serve_fl.run_serving`` on the card at K=10^4, 1500 ticks in
+     segments of 500 through the checkpoint manager, stopped after 2
      segments and re-invoked, bitwise the uninterrupted run; ticks/s and a
      torch.profiler trace of one segment; (c)
      ``fl.engine.async_accuracy_run`` at full width (the paper CNN, K=100,
@@ -221,10 +221,28 @@ else.  Phases (every mismatch raises, so any failure exits non-zero):
      compress mode bitwise the round without a mesh on the same inputs,
      with 480 bf16 attention launches a round and one FedAvg-combine launch
      (none under int8_psum).
+ 20. the sweeps' random numbers, JAX's Threefry streams: (a) the threefry
+     kernel bitwise its plain version at the sweeps' shapes (keys x
+     counters 8 x 100, 16 x 100, 24 x 100, 8 x 10^4, 8 x 2000, 2 x 10^6,
+     and a 2 x 2.5 * 10^5 slice at counter 5 * 10^5): bits, key pairs,
+     uniforms on [0, 1) and [10, 100); split of 24 keys into 500; fold_in
+     of cell ids on the device; the uniforms and the split timed (CUDA
+     events) beside the plain version and the bound (written bytes over
+     3.35 TB/s) and by the profiler's device time; (b) from the seeds
+     alone, no replay: the rounds of flaky-clients with a deadline (legacy
+     K=100, streamed K=2000, 8 policies x 4 grid points x 30 rounds) on the
+     card and on the CPU, selections and flags equal, round times within
+     RTOL; phases 3, 4a, 4b and 5 with their rounds cut (50, 25, 25, 10)
+     on the card against the
+     same sweeps on the CPU, flags equal, round times within RTOL, launches
+     exact; (c) phase 17a's grid (20 rounds) and a client-sharded sweep at
+     K=10^5 (8 blocks, 10 rounds) inside a NCCL group of world size 1,
+     bitwise the one-process sweeps, with the values each drew.
 
 Launch counts are zeroed before each sweep and read after it; each sweep
 must launch its kernels once per (policy, round) (the local top-S once per
-round of a score policy) and no other kernel.  The second-to-last line
+round of a score policy), the threefry kernel as ``threefry_launches``
+counts its draws, and no other kernel.  The second-to-last line
 is a JSON object with each kernel's launches, error against the plain
 version and times (CUDA events, and torch.profiler's device time where
 it recorded the kernel); the last line is the device summary.
@@ -278,9 +296,14 @@ KERNELS = {
     "rg_lru_scan": dict(
         replaces="src/repro/kernels/rg_lru.py:49",
         source=CSRC + "rg_lru.cu"),
+    # the port's own kernel: jax.random's threefry2x32, which the JAX
+    # package leaves to XLA (no Pallas kernel behind it)
+    "threefry": dict(
+        replaces="none: jax/_src/prng.py threefry2x32 (XLA, no TPU kernel)",
+        source=CSRC + "threefry.cu"),
 }
 SOURCES = ("bandit_round", "fedavg", "topk_slots", "ucb_score",
-           "flash_attention", "flash_attention_sm90", "rg_lru")
+           "flash_attention", "flash_attention_sm90", "rg_lru", "threefry")
 N_CNN = 4_583_146              # parameters of the paper CNN
 FEDAVG_CASES = [(1, 5, N_CNN), (1, 100, N_CNN), (2, 5, N_CNN), (1, 3, 1),
                 (1, 10, 8192 * 3 + 17), (3, 5, 8 * 4001 + 1),
@@ -689,11 +712,47 @@ def check_launches(label: str, expect: dict) -> dict:
 RATES: dict[str, float] = {}   # rounds/s of the last sweep of each phase
 
 
+def threefry_launches(scenario="paper-baseline", policies=None,
+                      n_rounds: int = 500, n_clients: int = 100,
+                      fluctuate: bool = True, deadline=None,
+                      chunk_rounds=None, fast_sampling=None,
+                      hierarchy: str = "flat", **_) -> int:
+    """The threefry launches of one ``sweep`` (sim/engine.KeyStreams): one
+    split of the seeds' keys into their roots; for each chunk table made
+    (once, or once a policy and chunk when the run has several chunks) the
+    round keys (1), the permutation's sort keys' keys (its sorting rounds,
+    legacy path), the fault uniforms (fold_in, uniform: 2), the congestion
+    normals (1) and the churn draws (split, uniform, randint's split and
+    bits: 4); each round and policy, the candidates (1 streamed, the
+    sorting rounds legacy, a hierarchical round's fold_in and uniforms 2)
+    and the Eq. (8) uniforms (1); each round of the random policy its
+    uniforms (1)."""
+    from repro_torch.core import bandit, prng
+    from repro_torch.sim import engine
+    from repro_torch.sim.scenarios import get_scenario
+    scen = get_scenario(scenario) if isinstance(scenario, str) else scenario
+    pols = [p if isinstance(p, str) else p[0]
+            for p in (policies or bandit.POLICY_NAMES)]
+    cells = hierarchy == "cells" and scen.congestion_cells > 1
+    fast = cells or engine.resolve_fast_sampling(fast_sampling, n_clients)
+    n_chunks = n_rounds // (chunk_rounds or n_rounds)
+    made = 1 if n_chunks == 1 else len(pols) * n_chunks
+    tables = 1 + (0 if fast else prng.shuffle_rounds(n_clients))
+    tables += 2 * (bandit.resolve_fault(scen.fault, deadline) is not None)
+    tables += (scen.congestion_cells > 0 and scen.congestion_sigma > 0.0)
+    tables += 4 * (scen.churn_prob > 0.0)
+    cand = 2 if cells else (1 if fast else prng.shuffle_rounds(n_clients))
+    per_round = len(pols) * (cand + bool(fluctuate)) + pols.count("random")
+    return 1 + made * tables + n_rounds * per_round
+
+
 def run_sweep(label: str, expect: dict, **kw):
     """One sweep on the card with the launch counts zeroed before and read
-    after; each kernel must have launched exactly ``expect`` times (the
-    kernels not named there: never)."""
+    after; each kernel must have launched exactly ``expect`` times, the
+    threefry kernel ``threefry_launches`` times (the kernels not named
+    there: never)."""
     from repro_torch.sim import engine
+    expect = {"threefry": threefry_launches(**kw), **expect}
     reset_counts()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -709,7 +768,7 @@ def run_sweep(label: str, expect: dict, **kw):
     log(f"[{label}] {p} policies x {e} eta x {s} seeds x {r} rounds in "
         f"{wall:.2f} s: {p * r / wall:.1f} rounds/s "
         f"({p * e * s * r / wall:.0f} grid-point rounds/s); launches "
-        f"{counts}")
+        f"{counts}; values drawn {res.drawn}")
     return res, counts
 
 
@@ -720,6 +779,7 @@ def phase_paper_sweep(results: dict) -> None:
         scenario="paper-baseline", etas=(1.0, 1.5, 1.9), seeds=8,
         n_rounds=500, n_clients=100)
     results["bandit_round"]["launches"] = counts["bandit_round"]
+    results["threefry"]["launches"] = counts["threefry"]
     table = res.mean_elapsed()
     log("[3] mean elapsed (s) by policy, eta = " + ", ".join(
         f"{e}" for e in res.etas))
@@ -727,53 +787,8 @@ def phase_paper_sweep(results: dict) -> None:
         log(f"[3]   {name:16s} " + " ".join(f"{v:12.1f}" for v in row))
     if table.shape != (len(bandit.POLICY_NAMES), 3):
         raise AssertionError("[3] mean_elapsed shape")
-    check_against_cpu()
     profile_sweep("3", scenario="paper-baseline", policies=("elementwise_ucb",),
                   etas=(1.0, 1.5, 1.9), seeds=8, n_rounds=100, n_clients=100)
-
-
-def check_against_cpu() -> None:
-    """The same draws through the card (kernels) and the CPU (plain path):
-    the round times must agree.  Both paths are run from one set of
-    CPU-made draws, so the comparison needs no shared generator."""
-    from repro_torch.core import bandit
-    from repro_torch.sim import engine
-    from repro_torch.sim.scenarios import get_scenario
-
-    scen = get_scenario("flaky-clients")
-    for fast, k in ((False, 100), (True, 2000)):
-        n_req = math.ceil(0.1 * k)
-        env_np = scen.build_env(k, np.random.default_rng(0))
-        worst = 0.0
-        for policy in bandit.POLICY_NAMES:
-            gens = engine.make_generators((0, 1), "cpu")
-            draws = [engine.draw_round_inputs(
-                gens, n_seeds=2, n_etas=2, k=k, n_req=n_req, s_round=5,
-                fast=fast, fluctuate=True, policy=policy, scen=scen,
-                fault=scen.fault.probs) for _ in range(50)]
-            out = {}
-            for dev in ("cpu", "cuda"):
-                env = engine.EnvArrays.from_scenario(scen, env_np, dev)
-                moved = [engine.RoundDraws(**{
-                    f: None if getattr(d, f) is None
-                    else getattr(d, f).to(dev)
-                    for f in d.__dataclass_fields__}) for d in draws]
-                rts, flags, _ = engine.run_rounds(
-                    env, torch.tensor([1.0, 1.0, 1.9, 1.9], device=dev),
-                    moved, policy=policy, scen=scen, s_round=5,
-                    hyper=bandit.DEFAULT_HYPERS[policy], model_bits=146.4e6,
-                    fast=fast, deadline=DEADLINE)
-                out[dev] = (rts.cpu(), flags.cpu())
-            torch.testing.assert_close(out["cuda"][0], out["cpu"][0],
-                                       rtol=1e-5, atol=0)
-            if not torch.equal(out["cuda"][1], out["cpu"][1]):
-                raise AssertionError(f"card vs CPU flags differ ({policy})")
-            worst = max(worst, (out["cuda"][0] - out["cpu"][0]).abs().max()
-                        .item())
-        log(f"[3] card (kernel) vs CPU (plain) on the same draws, "
-            f"flaky-clients K={k} {'streamed' if fast else 'legacy'}, "
-            f"8 policies x 4 grid points x 50 rounds: round times agree "
-            f"(max abs diff {worst:g} s), flags equal")
 
 
 def phase_fast_path(results: dict) -> None:
@@ -903,9 +918,9 @@ def phase_fedavg_kernel(results: dict) -> None:
 
 def _wrappers():
     from repro_torch.kernels import (bandit_round, fedavg, flash_attention,
-                                     rg_lru, topk_slots, ucb_score)
+                                     rg_lru, threefry, topk_slots, ucb_score)
     return (bandit_round, fedavg, topk_slots, ucb_score, flash_attention,
-            rg_lru)
+            rg_lru, threefry)
 
 
 def reset_counts() -> None:
@@ -1432,7 +1447,7 @@ def time_draw_vs_round(label: str, **kw) -> None:
         draw_cells = (cells[0], -(-k // scen.congestion_cells))
         n_req = cells[0] * cells[1]
     for policy in kw["policies"]:
-        gens = engine.make_generators(range(kw["seeds"]), dev)
+        streams = engine.KeyStreams(range(kw["seeds"]), rounds, dev)
         runner = engine.RoundRunner(
             env, eta, policy=policy, scen=scen, s_round=5,
             hyper=bandit.DEFAULT_HYPERS[policy], model_bits=146.4e6,
@@ -1442,9 +1457,9 @@ def time_draw_vs_round(label: str, **kw) -> None:
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             d = engine.draw_round_inputs(
-                gens, n_seeds=kw["seeds"], n_etas=1, k=k, n_req=n_req,
-                s_round=5, fast=True, fluctuate=True, policy=policy,
-                scen=scen, fault=None, cells=draw_cells)
+                streams, rnd=rnd - 1, k=k, n_req=n_req, s_round=5,
+                fast=True, fluctuate=True, policy=policy, scen=scen,
+                fault=None, cells=draw_cells)
             torch.cuda.synchronize()
             t1 = time.perf_counter()
             runner.step(rnd, d)
@@ -1502,8 +1517,10 @@ def phase_segmented(results: dict) -> None:
 
 
 def check_hierarchy_against_cpu() -> None:
-    """Hierarchical rounds on the same CPU-made draws through the card and
-    the CPU: each round's cell selection, candidates (``select_cells`` and
+    """Hierarchical rounds from the same seeds' keys through the card and
+    the CPU, each drawing on its own device (the per-cell uniforms from
+    ``fold_in`` of the selected cell ids there): each round's cell
+    selection, candidates (``select_cells``, ``hier_cell_uniforms`` and
     ``hier_cand_idx`` recomputed from the runner's aggregates, as its step
     computes them) and client selection equal, round times and the cell
     aggregates within rtol 1e-5.  ``n_req_cell`` below the cells'
@@ -1519,13 +1536,13 @@ def check_hierarchy_against_cpu() -> None:
     for cells in ((10, 1000), (10, 300)):
         worst, n_req = 0.0, cells[0] * cells[1]
         for policy in bandit.POLICY_NAMES:
-            gens = engine.make_generators((0, 1), "cpu")
-            draws = [engine.draw_round_inputs(
-                gens, n_seeds=2, n_etas=1, k=k, n_req=n_req, s_round=5,
-                fast=True, fluctuate=True, policy=policy, scen=scen,
-                fault=None, cells=(cells[0], m)) for _ in range(rounds)]
             out = {}
             for dev in ("cpu", "cuda"):
+                streams = engine.KeyStreams((0, 1), rounds, dev)
+                draws = [engine.draw_round_inputs(
+                    streams, rnd=r, k=k, n_req=n_req, s_round=5, fast=True,
+                    fluctuate=True, policy=policy, scen=scen, fault=None,
+                    cells=(cells[0], m)) for r in range(rounds)]
                 env = engine.EnvArrays.from_scenario(scen, env_np, dev)
                 runner = engine.RoundRunner(
                     env, torch.tensor([1.5, 1.5], device=dev),
@@ -1534,15 +1551,12 @@ def check_hierarchy_against_cpu() -> None:
                     fast=True, cells=cells)
                 rec = {"cells": [], "cand": [], "sel": [], "rt": []}
                 for rnd, d in enumerate(draws, start=1):
-                    d = engine.RoundDraws(**{
-                        f: None if getattr(d, f) is None
-                        else getattr(d, f).to(dev)
-                        for f in d.__dataclass_fields__})
                     sel_c = bandit.select_cells(runner.cell_n,
                                                 runner.cell_tinc, cells[0])
                     rec["cells"].append(sel_c.cpu())
                     rec["cand"].append(bandit.hier_cand_idx(
-                        d.cell_u, sel_c, k, n_cells, cells[1]).cpu())
+                        bandit.hier_cell_uniforms(d.cell_key, sel_c, m),
+                        sel_c, k, n_cells, cells[1]).cpu())
                     sel, rt, _ = runner.step(rnd, d)
                     rec["sel"].append(sel.cpu())
                     rec["rt"].append(rt.cpu())
@@ -1558,7 +1572,7 @@ def check_hierarchy_against_cpu() -> None:
             torch.testing.assert_close(a["rt"], b["rt"], rtol=1e-5, atol=0)
             torch.testing.assert_close(at, bt, rtol=1e-5, atol=0)
             worst = max(worst, (a["rt"] - b["rt"]).abs().max().item())
-        log(f"[11] card vs CPU on the same draws, metro-congestion K={k}, "
+        log(f"[11] card vs CPU from the same seeds, metro-congestion K={k}, "
             f"(s_cells, n_req_cell)={cells}, 8 policies x 2 grid points x "
             f"{rounds} rounds: cell selections, candidates, selections and "
             f"cell counts equal, round times max abs diff {worst:g} s")
@@ -2221,7 +2235,9 @@ def phase_griffin(results: dict) -> None:
 
 ASYNC_TICKS = 200                 # (a): ticks of each card-against-CPU run
 ASYNC_RTOL = 1e-5                 # the card-against-CPU limit on times
-SERVE_TICKS, SERVE_SEGMENT, SERVE_CRASH = 4000, 500, 3      # (b)
+# (b): 3 segments, stopped after 2 and resumed (the ticks cut, to keep the
+# whole script inside its time limit)
+SERVE_TICKS, SERVE_SEGMENT, SERVE_CRASH = 1500, 500, 2
 PROFILE_TICKS = 20                # (b)'s profile, run warm after (b)
 ASYNC_FL_TICKS = 6                                          # (c)
 
@@ -4067,6 +4083,219 @@ def phase_mesh_train(results: dict) -> None:
         f"{card_name_and_power()}")
 
 
+# ---------------------------------------------------------------------------
+# phase 20: the threefry kernel, the sweeps from the seed on the card
+# against the CPU, and the layouts' draws on one NCCL rank
+# ---------------------------------------------------------------------------
+
+# (keys, counters, offset) of the sweeps' draws: phase 3's permutation sort
+# keys (8 seeds) and Eq. (8) uniforms (8 theta and 8 gamma keys) at
+# K = 100 and 24 rows of 100; phase 4a's candidate uniforms (8 seeds,
+# K = 10^4) and its [2, C] block (C = 10^3); K = 10^6's candidates (2
+# seeds, phases 10 and 17b) and one rank's quarter of them
+THREEFRY_SHAPES = [(8, 100, 0), (16, 100, 0), (24, 100, 0), (8, 10_000, 0),
+                   (8, 2_000, 0), (2, 1_000_000, 0), (2, 250_000, 500_000)]
+THREEFRY_MAIN = (16, 100, 0)   # phase 3's Eq. (8) draw: one a policy round
+# (phase, sweep, expected round-kernel launches): phases 3, 4a, 4b and 5 with
+# their rounds cut to keep the CPU's runs short
+SEED_SWEEPS = [
+    ("3", dict(scenario="paper-baseline", etas=(1.0, 1.5, 1.9), seeds=8,
+               n_rounds=50, n_clients=100), {"bandit_round": 8 * 50}),
+    ("4a", dict(scenario="paper-baseline", etas=(1.5,), seeds=8,
+                n_rounds=25, n_clients=10_000),
+     {"bandit_round_sampled": 8 * 25}),
+    ("4b", dict(scenario="flaky-clients", etas=(1.5,), seeds=8, n_rounds=25,
+                n_clients=10_000, deadline=DEADLINE),
+     {"bandit_round_sampled": 8 * 25}),
+    ("5", dict(scenario="metro-congestion", etas=(1.5,), seeds=1,
+               n_rounds=10, n_clients=100_000),
+     {"bandit_round_sampled": 8 * 10}),
+]
+
+
+def threefry_bound(n_keys: int, n: int, out: str) -> float:
+    """Least ms of one launch: the keys read once and the outputs written
+    once (4 bytes, 8 for a key pair), over the memory rate."""
+    return (8 * n_keys + n_keys * n * (8 if out == "pairs" else 4)) \
+        / HBM_BYTES_PER_S * 1e3
+
+
+def _threefry_case(keys, n: int, label: str, **kw) -> None:
+    """The kernel against its plain version on the same card tensors."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.threefry import threefry_cuda
+    got = threefry_cuda(keys, n, **kw)
+    want = ref.threefry_ref(keys, n, **kw)
+    torch.cuda.synchronize()
+    if not bits_equal(got, want):
+        raise AssertionError(f"[20a] threefry {label}: kernel differs from "
+                             f"its plain version")
+
+
+def phase_threefry_kernel(results: dict) -> None:
+    """(a) the threefry kernel bitwise its plain version at the sweeps'
+    shapes, bits, key pairs and uniforms (also on bounds), split of 24 keys
+    into 500 and fold_in of cell ids on the device, each shape's uniforms
+    timed beside the plain version and the bound."""
+    from repro_torch.core import prng
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.threefry import threefry_cuda
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(20)
+    r, shapes = results["threefry"], []
+    for n_keys, n, offset in THREEFRY_SHAPES:
+        keys = torch.randint(-2 ** 31, 2 ** 31 - 1, (n_keys, 2), device=dev,
+                             dtype=torch.int32, generator=gen)
+        where = f"{n_keys} keys x {n} counters from {offset}"
+        for out in ("bits", "pairs", "uniform"):
+            _threefry_case(keys, n, f"{where} {out}", offset=offset, out=out)
+        _threefry_case(keys, n, f"{where} uniform [10, 100)",
+                       offset=offset, out="uniform", minval=10.0,
+                       maxval=100.0)
+        def launch():
+            return threefry_cuda(keys, n, offset=offset, out="uniform")
+        ms = time_ms(launch, 100)
+        dms = profiled_kernel_ms(launch, 50, kernel="threefry_kernel")
+        pms = time_ms(lambda: ref.threefry_ref(keys, n, offset=offset,
+                                               out="uniform"), 5)
+        b = threefry_bound(n_keys, n, "uniform")
+        shapes.append(dict(keys=n_keys, n=n, offset=offset, ms=ms,
+                           device_ms=dms, plain_ms=pms, bound_ms=b))
+        if (n_keys, n, offset) == THREEFRY_MAIN:
+            r.update(ms=ms, device_ms=dms, plain_ms=pms, bound_ms=b,
+                     bound_by="bytes", max_abs_err=0.0)
+        dev_txt = "none" if dms is None else f"{dms:.4f}"
+        log(f"[20a] threefry {where}: bits, pairs, uniforms (also on "
+            f"[10, 100)) bitwise the plain version; uniforms {ms:.4f} ms a "
+            f"call (device time by torch.profiler {dev_txt} ms), plain "
+            f"{pms:.3f} ms, bound {b:.6f} ms")
+    roots = torch.randint(-2 ** 31, 2 ** 31 - 1, (24, 2), device=dev,
+                          dtype=torch.int32, generator=gen)
+    _threefry_case(roots, 500, "split of 24 keys into 500", out="pairs")
+    split = prng.split(roots, 500)
+    if not bits_equal(split, ref.threefry_ref(roots, 500, out="pairs")):
+        raise AssertionError("[20a] prng.split differs on the card")
+    ms = time_ms(lambda: prng.split(roots, 500), 100)
+    shapes.append(dict(keys=24, n=500, offset=0, out="pairs", ms=ms,
+                       bound_ms=threefry_bound(24, 500, "pairs")))
+    cells = torch.randint(0, 100, (2, 10), device=dev, dtype=torch.int32,
+                          generator=gen)
+    got = prng.fold_in(roots[:2, None], cells)
+    want = ref.threefry_ref(roots[:2, None].expand(2, 10, 2), 1,
+                            row_offsets=cells.long(), out="pairs")
+    if not bits_equal(got.reshape(-1, 2), want.reshape(-1, 2)):
+        raise AssertionError("[20a] fold_in of cell ids differs on the card")
+    r["shapes"] = shapes
+    log(f"[20a] split of 24 keys into 500: {ms:.4f} ms; fold_in of [2, 10] "
+        f"cell ids on the device bitwise the plain version; "
+        f"{card_name_and_power()}")
+
+
+def seed_rounds_card_vs_cpu() -> None:
+    """The rounds of a sweep from the same seeds on the card and on the
+    CPU, each drawing on its own device: every round's selections and flags
+    equal, round times within RTOL (flaky-clients with a deadline, legacy
+    at K = 100 and streamed at K = 2000, 8 policies x 4 grid points x 30
+    rounds)."""
+    from repro_torch.core import bandit
+    from repro_torch.sim import engine
+    from repro_torch.sim.scenarios import get_scenario
+
+    scen, rounds = get_scenario("flaky-clients"), 30
+    for fast, k in ((False, 100), (True, 2000)):
+        n_req = math.ceil(0.1 * k)
+        env_np = scen.build_env(k, np.random.default_rng(0))
+        worst = 0.0
+        for policy in bandit.POLICY_NAMES:
+            out = {}
+            for dev in ("cpu", "cuda"):
+                # grid points (eta 1.0, 1.9) x seeds (0, 1), as sweep lays
+                # them out
+                streams = engine.KeyStreams(
+                    (0, 1), rounds, dev,
+                    rows=torch.tensor([0, 1, 0, 1], device=dev))
+                runner = engine.RoundRunner(
+                    engine.EnvArrays.from_scenario(scen, env_np, dev),
+                    torch.tensor([1.0, 1.0, 1.9, 1.9], device=dev),
+                    policy=policy, scen=scen, s_round=5,
+                    hyper=bandit.DEFAULT_HYPERS[policy], model_bits=146.4e6,
+                    fast=fast, deadline=DEADLINE)
+                rec = [runner.step(r + 1, engine.draw_round_inputs(
+                    streams, rnd=r, k=k, n_req=n_req, s_round=5, fast=fast,
+                    fluctuate=True, policy=policy, scen=scen,
+                    fault=scen.fault.probs)) for r in range(rounds)]
+                out[dev] = [torch.stack([x[i].cpu() for x in rec])
+                            for i in range(3)]
+            (sa, ta, fa), (sb, tb, fb) = out["cuda"], out["cpu"]
+            if not (torch.equal(sa, sb) and torch.equal(fa, fb)):
+                raise AssertionError(f"[20b] card vs CPU {policy} K={k}: "
+                                     f"selections or flags differ")
+            torch.testing.assert_close(ta, tb, rtol=RTOL, atol=0)
+            worst = max(worst, (ta - tb).abs().max().item())
+        log(f"[20b] rounds from the seeds on the card vs the CPU, "
+            f"flaky-clients K={k} {'streamed' if fast else 'legacy'}, 8 "
+            f"policies x 4 grid points x {rounds} rounds: selections and "
+            f"flags equal, round times max abs diff {worst:g} s")
+
+
+def phase_seed_sweeps() -> None:
+    """(b) phases 3, 4a, 4b and 5 (rounds cut) from the seeds on the card
+    against the port on the CPU, no replay: flags equal, round times within
+    RTOL, the launches of each card sweep exact."""
+    from repro_torch.sim import engine
+    seed_rounds_card_vs_cpu()
+    for label, kw, expect in SEED_SWEEPS:
+        card, counts = run_sweep(f"20b-{label}", expect, **kw)
+        t0 = time.perf_counter()
+        cpu = engine.sweep(device="cpu", **kw)
+        wall = time.perf_counter() - t0
+        np.testing.assert_allclose(card.round_times, cpu.round_times,
+                                   rtol=RTOL, atol=0,
+                                   err_msg=f"[20b-{label}] card vs CPU")
+        if (card.flags is None) != (cpu.flags is None) or (
+                card.flags is not None
+                and not np.array_equal(card.flags, cpu.flags)):
+            raise AssertionError(f"[20b-{label}] flags differ card/CPU")
+        d = np.abs(card.round_times.astype(np.float64) - cpu.round_times)
+        log(f"[20b-{label}] the card's sweep from the seeds against the "
+            f"CPU's ({wall:.1f} s there): round times max rel diff "
+            f"{(d / cpu.round_times).max():g}"
+            f"{', flags equal' if cpu.flags is not None else ''}; the "
+            f"card's {RATES[f'20b-{label}']:.1f} rounds/s, "
+            f"{counts['threefry']} threefry launches")
+
+
+def phase_seed_layouts() -> None:
+    """(c) phase 17a's and 17b's layouts, cut, inside a NCCL group of
+    world size 1: bitwise the one-process sweeps, with the values each
+    drew."""
+    a = dict(scenario="paper-baseline", etas=(1.5,), seeds=8, n_rounds=20,
+             n_clients=10_000)
+    b = dict(scenario="paper-baseline", etas=(1.5,), seeds=2, n_rounds=10,
+             n_clients=100_000, shard="clients", devices=8)
+    flat_a, _ = run_sweep("20c", {"bandit_round_sampled": 8 * 20}, **a)
+    one_b, _ = run_sweep("20c", {"topk_slots": 2 * 10}, **b)
+    with process_group("20c"):
+        grid, _ = run_sweep("20c", {"bandit_round_sampled": 8 * 20},
+                            shard="grid", devices=4, **a)
+        sweeps_equal("20c", grid, flat_a, "grid over 4 shards on NCCL rank "
+                     f"0 against the flat sweep; drawn {grid.drawn}")
+        seg, _ = run_sweep("20c", {"topk_slots": 2 * 10}, **b)
+        sweeps_equal("20c", seg, one_b, "8 client blocks on NCCL rank 0 "
+                     "(the candidate tops all-gathered) against the "
+                     f"one-process sweep; drawn {seg.drawn}")
+
+
+def phase_seed(results: dict) -> None:
+    t0 = time.perf_counter()
+    phase_threefry_kernel(results)
+    phase_seed_sweeps()
+    phase_seed_layouts()
+    log(f"[20] phase time {time.perf_counter() - t0:.1f} s; "
+        f"{card_name_and_power()}")
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: CUDA is not available; this script runs on "
@@ -4101,6 +4330,7 @@ def main() -> None:
     phase_devices(results)
     phase_mesh(results)
     phase_mesh_train(results)
+    phase_seed(results)
     log(f"[done] {time.perf_counter() - t0:.1f} s")
     log(card_name_and_power())          # again, beside the results
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",

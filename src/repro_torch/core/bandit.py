@@ -7,22 +7,28 @@ The JAX package ``vmap``s them over the (eta x seed) grid; here every state
 leaf and every per-round input carries an explicit leading ``[G]`` grid
 axis instead, and the functions are written for it.
 
-Randomness is never drawn here: the round functions take their random
-inputs (the random policy's uniforms ``rand``, the fault uniforms
-``fault_u``) as tensors, so tests can hand both packages the same numbers.
+The round functions draw no randomness: they take their random inputs
+(the random policy's uniforms ``rand``, the fault uniforms ``fault_u``,
+the hierarchical round's per-cell uniforms) as tensors, so tests can hand
+both packages the same numbers.  Where those inputs come from the JAX
+package's keys, :func:`fault_uniforms`, :func:`random_uniforms` and
+:func:`hier_cell_uniforms` draw them from a round's keys as
+``bandit_jax`` does (core/prng.py).
 
 Counterparts (JAX package -> here): ``BanditState``, ``state_tree`` /
 ``state_from_tree``, ``cand_idx_from_mask``, ``ucb_bonus_arrays``,
 ``observe``, ``greedy_slots``, ``top_slots``, ``schedule_selected`` /
 ``schedule_gathered`` / ``schedule_completions``, ``FLAG_*``,
-``resolve_fault``, ``censor_slots``, ``POLICY_STATS``, ``policy_kind``,
+``FAULT_STREAM_TAG``, ``fault_uniforms``, ``resolve_fault``,
+``censor_slots``, ``POLICY_STATS``, ``policy_kind``,
 ``policy_scores``, ``policy_decay``, ``DEFAULT_HYPERS``,
 ``scatter_cand_times``, ``round_via_mask``, ``make_round_fn``,
 ``make_sampled_round_fn``, ``make_segmented_round_fn`` (the client-sharded
 round), the index-based selection API (``candidate_mask``, ``select_*``,
 ``SELECT_FNS``, ``make_select_fn``) and the hierarchical cell bandit
-(``cell_scores``, ``select_cells``, ``select_slots_all``, ``hier_cand_idx``,
-``update_cell_stats``).  Not ported: ``FUSED_MIN_K`` and ``KERNEL_MIN_K``,
+(``cell_scores``, ``select_cells``, ``select_slots_all``, ``hier_cand_idx``
+with its draw ``hier_cell_uniforms``, ``update_cell_stats``).  Not
+ported: ``FUSED_MIN_K`` and ``KERNEL_MIN_K``,
 the JAX package's small-K routings timed for its own CPU and TPU; here a
 fused round always takes the fused path, and a Python-number alpha always
 scores through ``ops.ucb_scores``.
@@ -375,6 +381,27 @@ FLAG_DEADLINE = 3    # healthy but finished past the round deadline
 FLAG_CORRUPT = 4     # arrived in time but the update payload is garbage
 
 
+# fold_in tag of the fault stream: a child of the round's policy key
+FAULT_STREAM_TAG = 0xFA11
+
+
+def fault_uniforms(key: torch.Tensor, s_round: int) -> torch.Tensor:
+    """The [..., 3, S] per-slot fault uniforms (rows: crash, churn,
+    corrupt) of a round from its policy keys [..., 2]:
+    ``uniform(fold_in(key, FAULT_STREAM_TAG), (3, S))``."""
+    from repro_torch.core import prng
+    return prng.uniform(prng.fold_in(key, FAULT_STREAM_TAG), (3, s_round))
+
+
+def random_uniforms(key: torch.Tensor, k: int, first: int = 0,
+                    width: int | None = None) -> torch.Tensor:
+    """The random policy's [..., K] uniforms of a round from its policy
+    keys [..., 2], ``uniform(key, (K,))``; with ``first``/``width`` only
+    clients [first, first + width) of them."""
+    from repro_torch.core import prng
+    return prng.uniform(key, k if width is None else width, offset=first)
+
+
 def resolve_fault(fault, deadline: float | None):
     """Normalize/validate the (fault, deadline) pair of a round factory.
 
@@ -678,8 +705,9 @@ def make_segmented_round_fn(policy: str, s_round: int, *, n_shards: int,
     [G*P/R, K/P] state (``sharding.shard_state``); ``cand_idx``: [G, C]
     sorted global candidates, the same for every shard;
     ``theta_mu``/``gamma_mu``: [G, P/R, K/P] mean blocks; ``n_samples``:
-    [P/R, K/P]; ``u2``/``rand``/``eta``/``fault_u`` as in
-    :func:`make_sampled_round_fn` (``rand`` the flat [G, K] stream).  The
+    [P/R, K/P]; ``u2``/``eta``/``fault_u`` as in
+    :func:`make_sampled_round_fn`; ``rand``: the random policy's uniforms
+    at this process's clients, [G, P/R, K/P] blocks of the flat stream.  The
     JAX package runs one shard per device; here a process's blocks are a
     leading axis of its tensors, crossing shards through
     ``sharding.sum_shards`` (``psum``: the local sum, then ``all_reduce``)
@@ -729,8 +757,7 @@ def make_segmented_round_fn(policy: str, s_round: int, *, n_shards: int,
         t_ud_c, t_ul_c = truncnorm_times_ref(
             u2, assemble(local(theta_mu)), assemble(local(gamma_mu)),
             assemble(local(n_samples)), eta, model_bits, fluctuate=fluctuate)
-        rand_c = (rand.gather(1, torch.where(cvalid, cand_idx, 0).long())
-                  if policy == "random" else None)
+        rand_c = assemble(local(rand)) if policy == "random" else None
 
         rows = safe_l.reshape(g * p, -1)
 
@@ -1047,6 +1074,17 @@ def hier_cand_idx(u: torch.Tensor, cells_sel: torch.Tensor, k: int,
     pos = top_k(uu, n_req_cell)
     cands = torch.where(uu.gather(-1, pos) >= 0.0, gidx.gather(-1, pos), k)
     return cands.reshape(g, -1).sort(-1).values.to(torch.int32)
+
+
+def hier_cell_uniforms(key: torch.Tensor, cells_sel: torch.Tensor,
+                       m: int) -> torch.Tensor:
+    """The uniforms :func:`hier_cand_idx` polls by, from the round's
+    candidate keys [G, 2]: ``uniform(fold_in(key, c), (m,))`` for each
+    selected cell c of ``cells_sel`` [G, s_cells] (cell ids on the device),
+    so a cell's draw does not depend on which other cells were picked.
+    Returns [G, s_cells, m]."""
+    from repro_torch.core import prng
+    return prng.uniform(prng.fold_in(key[..., None, :], cells_sel), m)
 
 
 def update_cell_stats(cell_n: torch.Tensor, cell_tinc: torch.Tensor,

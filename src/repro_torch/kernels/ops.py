@@ -1,12 +1,12 @@
 """Routing of the port's kernels — the port of ``repro.kernels.ops``
 (``bandit_round``, ``bandit_round_sampled``, ``local_topk``,
 ``ucb_scores``, ``fedavg_combine``, ``flash_attention``,
-``rg_lru_scan``).
+``rg_lru_scan``), and ``threefry``, the port's own generator kernel.
 
 A CUDA tensor goes to the hand-written kernel (kernels/bandit_round.py,
 kernels/topk_slots.py, kernels/ucb_score.py, kernels/fedavg.py,
-kernels/flash_attention.py, kernels/rg_lru.py); a CPU tensor goes to the
-plain version (kernels/ref.py).  The bandit round's
+kernels/flash_attention.py, kernels/rg_lru.py, kernels/threefry.py); a CPU
+tensor goes to the plain version (kernels/ref.py).  The bandit round's
 kernel updates the state in place and its plain version returns a new one:
 callers use the returned state and treat the one passed in as consumed.
 
@@ -33,6 +33,7 @@ from repro_torch.kernels import fedavg as _fedavg
 from repro_torch.kernels import flash_attention as _flash
 from repro_torch.kernels import ref as _ref
 from repro_torch.kernels import rg_lru as _rg
+from repro_torch.kernels import threefry as _threefry
 from repro_torch.kernels import topk_slots as _topk
 from repro_torch.kernels import ucb_score as _ucb
 
@@ -87,6 +88,15 @@ def fedavg_combine(stacked, weights):
     fn = (_fedavg.fedavg_combine_cuda if stacked.is_cuda
           else _ref.fedavg_combine_ref)
     return fn(stacked, weights)
+
+
+def threefry(keys, n: int, *, offset: int = 0, row_offsets=None,
+             out: str = "bits", minval: float = 0.0, maxval: float = 1.0):
+    """Threefry-2x32 of [N, 2] int32 keys over n counters from ``offset``
+    (contract of ``kernels/ref.threefry_ref``)."""
+    fn = _threefry.threefry_cuda if keys.is_cuda else _ref.threefry_ref
+    return fn(keys, n, offset=offset, row_offsets=row_offsets, out=out,
+              minval=minval, maxval=maxval)
 
 
 def _needs_grad(*xs) -> bool:

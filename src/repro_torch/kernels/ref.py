@@ -1,7 +1,9 @@
 """Plain PyTorch versions of the port's kernels — the port of
 ``repro.kernels.ref`` (``ucb_scores_ref``, ``truncnorm_times_ref``,
 ``bandit_round_ref``, ``local_topk_ref``, ``segmented_topk_ref``,
-``fedavg_ref``, ``flash_attention_ref``, ``rg_lru_ref``).
+``fedavg_ref``, ``flash_attention_ref``, ``rg_lru_ref``), and
+``threefry_ref``, the plain version of the port's own threefry kernel
+(``jax.random``'s counter-based generator; no TPU kernel behind it).
 
 They are the CPU path of ``kernels/ops.py`` and the references that the
 CUDA kernels (kernels/csrc/*.cu) are held against on the card: the same
@@ -11,6 +13,9 @@ package computes the cross-shard merge outside any Pallas kernel too.
 
 from __future__ import annotations
 
+import functools
+
+import numpy as np
 import torch
 
 from repro_torch.core import bandit
@@ -306,3 +311,90 @@ def rg_lru_ref(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     for t in range(a.shape[1]):
         h = torch.addcmul(bf[:, t], af[:, t], h, out=y[:, t])
     return y.to(a.dtype)
+
+
+# ---------------------------------------------------------------------------
+# threefry2x32 (kernels/csrc/threefry.cu), the generator behind jax.random
+# ---------------------------------------------------------------------------
+
+_MASK = 0xFFFFFFFF
+THREEFRY_ROTATIONS = ((13, 15, 26, 6), (17, 29, 16, 24))
+THREEFRY_PARITY = 0x1BD11BDA
+THREEFRY_OUTS = ("bits", "pairs", "uniform")
+
+
+def uint32_of(x: torch.Tensor) -> torch.Tensor:
+    """The unsigned value of int32 bits, as int64."""
+    return x.long() & _MASK
+
+
+def int32_of(x: torch.Tensor) -> torch.Tensor:
+    """int64 values in [0, 2^32) as the int32 of the same bits."""
+    return (x - ((x >> 31) << 32)).to(torch.int32)
+
+
+def threefry2x32_ref(k0, k1, x0, x1):
+    """The Threefry-2x32 block cipher of 20 rounds (jax's
+    ``_threefry2x32_lowering``) on uint32 values held in int64 tensors
+    (broadcastable): key (k0, k1), counter (x0, x1) -> (y0, y1)."""
+    ks = (k0, k1, k0 ^ k1 ^ THREEFRY_PARITY)
+    x0 = (x0 + ks[0]) & _MASK
+    x1 = (x1 + ks[1]) & _MASK
+    for i in range(5):
+        for r in THREEFRY_ROTATIONS[i % 2]:
+            x0 = (x0 + x1) & _MASK
+            x1 = (((x1 << r) | (x1 >> (32 - r))) & _MASK) ^ x0
+        x0 = (x0 + ks[(i + 1) % 3]) & _MASK
+        x1 = (x1 + ks[(i + 2) % 3] + (i + 1)) & _MASK
+    return x0, x1
+
+
+@functools.cache
+def uniform_affine(minval: float, maxval: float) -> tuple[float, float]:
+    """(lo, span) of ``jax.random.uniform``'s bounds in float32: the
+    bounds rounded to float32 and their float32 difference."""
+    lo = np.float32(minval)
+    return float(lo), float(np.float32(maxval) - lo)
+
+
+def threefry_ref(keys: torch.Tensor, n: int, *, offset: int = 0,
+                 row_offsets: torch.Tensor | None = None, out: str = "bits",
+                 minval: float = 0.0, maxval: float = 1.0) -> torch.Tensor:
+    """Threefry-2x32 of N keys over n counters: the plain version of the
+    ``threefry`` kernel.
+
+    ``keys``: [N, 2] int32 (the uint32 key words).  Row i hashes the 64-bit
+    counters c = offset + row_offsets[i] + j for j < n, as (hi, lo) =
+    (c >> 32, c mod 2^32) — jax's ``iota_2x32_shape`` of a flat index, so
+    counters [offset, offset + n) are that slice of a draw of any larger
+    size.  ``out``:
+
+      * "bits": [N, n] int32, the 32-bit draw y0 ^ y1
+        (``_threefry_random_bits_partitionable``);
+      * "pairs": [N, n, 2] int32, (y0, y1) — ``split``'s keys and
+        ``fold_in``'s key;
+      * "uniform": [N, n] float32, ``jax.random.uniform``'s float on
+        [minval, maxval): the bits' top 23 as the mantissa of [1, 2), minus
+        1, times the float32 span plus minval rounded once (XLA:CPU
+        contracts jax's ``floats * (maxval - minval) + minval`` into one
+        FMA; ``torch.addcmul`` rounds it once too), then at least minval.
+    """
+    if out not in THREEFRY_OUTS:
+        raise ValueError(f"out must be one of {THREEFRY_OUTS}, got {out!r}")
+    dev = keys.device
+    k = uint32_of(keys.reshape(-1, 2))
+    c = offset + torch.arange(n, dtype=torch.int64, device=dev)[None]
+    if row_offsets is not None:
+        c = c + row_offsets.reshape(-1, 1).long()
+    y0, y1 = threefry2x32_ref(k[:, :1], k[:, 1:], (c >> 32) & _MASK,
+                              c & _MASK)
+    y0, y1 = torch.broadcast_tensors(y0, y1)
+    if out == "pairs":
+        return int32_of(torch.stack([y0, y1], -1))
+    bits = y0 ^ y1
+    if out == "bits":
+        return int32_of(bits)
+    lo, span = uniform_affine(minval, maxval)
+    f = ((bits >> 9) | 0x3F800000).to(torch.int32).view(torch.float32) - 1.0
+    return torch.addcmul(torch.full_like(f, lo), f,
+                         torch.full_like(f, span)).clamp_min(lo)

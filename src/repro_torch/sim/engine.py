@@ -13,17 +13,22 @@ loop.  The policy axis is a Python loop, as in the JAX package.
 
 Each round is split at a seam:
 
-  * :func:`draw_round_inputs` draws the round's random numbers from
-    ``torch.Generator``s — candidates, the Eq. (8) uniforms, the random
-    policy's uniforms, fault uniforms, congestion normals, churn draws —
-    into a :class:`RoundDraws`;
+  * :func:`draw_round_inputs` draws the round's random numbers —
+    candidates, the Eq. (8) uniforms, the random policy's uniforms, fault
+    uniforms, congestion normals, churn draws — into a :class:`RoundDraws`,
+    from one of two sources: :class:`KeyStreams`, the JAX package's
+    Threefry keys (core/prng.py; what ``sweep`` draws from), or a dict of
+    ``torch.Generator``s (:func:`make_generators`; the learning-coupled
+    sweep of fl/engine.py);
   * :func:`run_rounds` consumes those draws and runs the rounds.
 
-The tests hand numpy-made draws to both :func:`run_rounds` and the JAX
-package's round functions, which holds the whole round loop against JAX
-exactly with no shared RNG.  ``torch.Generator`` streams differ from
-``jax.random``'s, so sampled sweeps of the two packages agree in
-distribution, not pointwise.
+``sweep`` derives its keys as ``engine_jax`` does — ``split(PRNGKey(seed),
+6)`` into the candidate, theta, gamma, policy, congestion and churn roots,
+each split into one key per round — and draws each stream as the JAX
+package draws it, so from the same seeds it gives ``engine_jax.sweep``'s
+selections and fault flags exactly and its round times within float32
+rounding, with no replay.  The tests can still hand numpy-made draws to
+both :func:`run_rounds` and the JAX package's round functions.
 
 Two sampling paths, as in the JAX package: the legacy path draws every
 client's times each round (presample of [G, K]) and runs the fused round on
@@ -52,7 +57,7 @@ from typing import Iterable
 import numpy as np
 import torch
 
-from repro_torch.core import bandit
+from repro_torch.core import bandit, prng
 from repro_torch.distributed import sharding
 from repro_torch.kernels.ref import sample_times_candidates
 from repro_torch.sim import network
@@ -62,14 +67,17 @@ from repro_torch.sim.truncnorm import truncnorm_transform
 
 FAST_SAMPLING_MIN_K = 1024
 
-# the random streams of one sweep, each its own generator so that one
-# policy's extra draws (the random policy's uniforms) do not shift another
-# stream: every policy and eta of a sweep sees the same candidates and
-# resource uniforms (common random numbers, as the JAX sweep's per-seed
-# keys give).  "perm" (the clients' epoch orders of the learning-coupled
-# sweep, fl/engine.py) comes last, so the streams before it are the same
-# whether or not a sweep trains a model.
+# the torch.Generator streams of the learning-coupled sweep (fl/engine.py),
+# each its own generator so that one policy's extra draws (the random
+# policy's uniforms) do not shift another stream: every policy and eta of a
+# sweep sees the same candidates and resource uniforms (common random
+# numbers, as the JAX sweep's per-seed keys give).  "perm" (the clients'
+# epoch orders) comes last, so the streams before it are the same whether
+# or not a sweep trains a model.
 STREAMS = ("cand", "time", "pol", "fault", "cong", "churn", "perm")
+# the JAX package's per-seed roots, split(PRNGKey(seed), 6) in this order
+# (engine_jax._run_one)
+ROOTS = ("cand", "theta", "gamma", "pol", "cong", "churn")
 
 
 def resolve_device(device=None) -> torch.device:
@@ -233,7 +241,11 @@ def churn_step(u: torch.Tensor, mean_theta: torch.Tensor,
         network.MIN_DIST_M)
     hit = do[:, None] & (torch.arange(first, first + width, device=u.device)[
         None] == j[:, None])
-    new_gamma = CAP_LOW + u[:, 3] * (CAP_HIGH - CAP_LOW)
+    # jax.random.uniform's minval + u * (maxval - minval), rounded once as
+    # XLA contracts it, then at least minval
+    new_gamma = torch.addcmul(torch.full_like(u[:, 3], CAP_LOW), u[:, 3],
+                              torch.full_like(u[:, 3], CAP_HIGH - CAP_LOW)
+                              ).clamp_min(CAP_LOW)
     return (torch.where(hit, throughput_bps(r)[:, None], mean_theta),
             torch.where(hit, new_gamma[:, None], mean_gamma))
 
@@ -252,10 +264,12 @@ class RoundDraws:
     fault_u: torch.Tensor | None = None  # [G, 3, S] crash/churn/corrupt
     cong: torch.Tensor | None = None    # [G, cells] standard normals
     churn: torch.Tensor | None = None   # [G, 4] churn uniforms
-    # hierarchical rounds: per selected cell's uniforms [G, s_cells, m]
-    # (m = ceil(K / n_cells)), from which the round polls its candidates
-    # (cand is None then)
+    # hierarchical rounds (cand is None then): the per selected cell's
+    # uniforms [G, s_cells, m] (m = ceil(K / n_cells)) from which the round
+    # polls its candidates, or the round's candidate keys [G, 2] from which
+    # it draws them once it has selected its cells
     cell_u: torch.Tensor | None = None
+    cell_key: torch.Tensor | None = None
 
 
 def make_generators(seeds, device) -> dict[str, torch.Generator]:
@@ -271,53 +285,252 @@ def make_generators(seeds, device) -> dict[str, torch.Generator]:
     return gens
 
 
-def topk_lowest(u: torch.Tensor, n: int) -> torch.Tensor:
+def topk_lowest(u: torch.Tensor, n: int, first: int = 0,
+                group=None) -> torch.Tensor:
     """Indices of the ``n`` largest entries of each row of the non-negative
     float32 ``u`` (uniforms), ties going to the lower index (the set
-    ``lax.top_k`` takes), sorted ascending.  ``torch.topk`` alone leaves
-    the order of ties unspecified, and float32 uniforms tie at rank ``n``
-    often enough at large K to decide membership; the unique keys of
-    ``bandit.rank_keys`` do not tie."""
+    ``lax.top_k`` takes), sorted ascending, int64.  ``torch.topk`` alone
+    leaves the order of ties unspecified, and float32 uniforms tie at rank
+    ``n`` often enough at large K to decide membership; the unique keys of
+    ``bandit.rank_keys`` do not tie.
+
+    With a process group ``group``, ``u`` is this rank's columns [first,
+    first + width) of each row, the group's ranks holding the rest in
+    rank order: each rank keeps the keys of its slice's top n (with the
+    indices global), the ranks all-gather them, and the top n of those
+    are the whole row's, bitwise."""
     keys = bandit.rank_keys(u, nonnegative=True)
-    return keys.topk(n, dim=-1, sorted=False).indices.sort(dim=-1).values
+    if group is None:                                   # whole rows
+        return keys.topk(n, dim=-1, sorted=False).indices.sort(dim=-1).values
+    top = (keys - first).topk(min(n, u.shape[-1]), dim=-1,
+                              sorted=False).values
+    top = sharding.gather_shards(top, 1, group).topk(
+        n, dim=-1, sorted=False).values
+    return (0xFFFFFFFF - (top & 0xFFFFFFFF)).sort(dim=-1).values
 
 
-def draw_round_inputs(gens: dict[str, torch.Generator], *, n_seeds: int,
-                      n_etas: int, k: int, n_req: int, s_round: int,
-                      fast: bool, fluctuate: bool, policy: str,
+class _GeneratorStreams:
+    """A round's draws from the ``torch.Generator``s of
+    :func:`make_generators`, ``n`` rows (seeds) at a time; the round index
+    is not needed, each generator runs on."""
+
+    def __init__(self, gens: dict[str, torch.Generator], n: int):
+        self.gens, self.n = gens, n
+
+    def _rand(self, name, *shape):
+        gen = self.gens[name]
+        return torch.rand((self.n, *shape), generator=gen, device=gen.device)
+
+    def candidates(self, rnd, k, n_req, fast):
+        u = self._rand("cand", k)
+        return (topk_lowest(u, n_req) if fast else
+                u.argsort(dim=1)[:, :n_req].sort(dim=1).values).to(
+                    torch.int32)
+
+    def cells(self, rnd, s_cells, m):
+        return self._rand("cand", s_cells, m), None
+
+    def times(self, rnd, k, n_req, fast):
+        return self._rand("time", 2, n_req if fast else k)
+
+    def policy_uniforms(self, rnd, k):
+        return self._rand("pol", k)
+
+    def fault(self, rnd, s_round):
+        return self._rand("fault", 3, s_round)
+
+    def normals(self, rnd, cells):
+        gen = self.gens["cong"]
+        return torch.randn((self.n, cells), generator=gen, device=gen.device)
+
+    def churn(self, rnd, k):
+        return self._rand("churn", 4)
+
+
+class KeyStreams:
+    """The JAX package's random streams of a sweep, on Threefry keys
+    (core/prng.py): the draw source of :func:`draw_round_inputs` that gives
+    ``engine_jax.sweep``'s numbers from the seeds alone.
+
+    Each seed's key splits into the roots of :data:`ROOTS`, each root into
+    one key per round (``engine_jax._per_round_keys``), and each stream
+    draws from its round key as the JAX package draws it:
+
+      * candidates: ``sort(permutation(k, K)[:n_req])`` on the legacy path,
+        the top ``n_req`` of ``uniform(k, (K,))`` (ties to the lower index)
+        on the streamed one;
+      * Eq. (8) uniforms: ``uniform`` over [K] from the theta and the gamma
+        key (legacy), or one [2, C] block from the theta key (streamed);
+      * the random policy's ``uniform(k, (K,))`` and the fault uniforms
+        (``bandit.fault_uniforms``) from the policy key;
+      * the congestion normals ``normal(k, (cells,))``;
+      * churn: ``split(k, 4)`` -> the uniform whether, the ``randint``
+        victim j, the uniforms of its distance and capability; j is handed
+        on as the uniform (j + 0.5) / K, which ``churn_step``'s
+        floor(u * K) maps back to j.
+
+    ``seeds``: the seeds this process draws for; ``rows``: [G'] int64
+    index of the seed of each grid row it runs, on the device (None: one
+    row per seed).  A draw is made once per seed and then spread to the
+    rows.  The keys of every stream and the small per-round streams (fault
+    uniforms, congestion normals, churn draws, the permutation's sort keys'
+    keys) are drawn for ``chunk`` rounds at once (default: the whole run,
+    drawn once for every policy), one launch per stream; the K-sized
+    streams are drawn round by round.
+
+    ``clients`` = (first, width): draw the candidate and the random
+    policy's uniforms only at clients [first, first + width) (their
+    counters of the flat draw); the ranks of ``group`` hold the other
+    slices, and their top-n_req candidate keys merge across them
+    (:func:`topk_lowest`).
+
+    ``drawn``: the random values drawn so far, by stream (``"keys"``
+    counts key words).
+    """
+
+    def __init__(self, seeds, n_rounds: int, device, *, rows=None,
+                 chunk: int | None = None, clients=None, group=None):
+        self.n_rounds = int(n_rounds)
+        self.chunk = self.n_rounds if chunk is None else int(chunk)
+        self.rows, self.clients, self.group = rows, clients, group
+        self.roots = prng.split(prng.prng_key(tuple(int(s) for s in seeds),
+                                              device=device), len(ROOTS))
+        self.drawn = dict.fromkeys(("keys", "cand", "time", "pol", "fault",
+                                    "cong", "churn"), 0)
+        self._tables: dict[str, tuple[int, torch.Tensor]] = {}
+
+    def _count(self, name: str, x: torch.Tensor) -> torch.Tensor:
+        self.drawn[name] += x.numel()
+        return x
+
+    def _rows(self, x: torch.Tensor) -> torch.Tensor:
+        return x if self.rows is None else x.index_select(0, self.rows)
+
+    def _table(self, name: str, rnd: int, make) -> torch.Tensor:
+        """Round ``rnd``'s entry of stream ``name``'s table for the chunk
+        holding it: ``make(keys)`` of the chunk's round keys [S, c, 6, 2]
+        -> [S, c, ...], made when the chunk is first asked for and kept
+        round-major, so that a round's entry is contiguous (the kernels
+        take contiguous tensors)."""
+        c0 = rnd - rnd % self.chunk
+        hit = self._tables.get(name)
+        if hit is None or hit[0] != c0:
+            table = make(self._chunk_keys(c0))
+            hit = (c0, table.transpose(0, 1).contiguous())
+            self._tables[name] = hit
+        return hit[1][rnd - c0]
+
+    def _chunk_keys(self, c0: int) -> torch.Tensor:
+        hit = self._tables.get("keys")
+        if hit is None or hit[0] != c0:
+            c = min(self.chunk, self.n_rounds - c0)
+            keys = self._count("keys", prng.split(self.roots, c, offset=c0))
+            hit = (c0, keys.transpose(1, 2))            # [S, c, 6, 2]
+            self._tables["keys"] = hit
+        return hit[1]
+
+    def key(self, name: str, rnd: int) -> torch.Tensor:
+        """[S, 2] round ``rnd``'s key of root ``name``."""
+        c0 = rnd - rnd % self.chunk
+        return self._chunk_keys(c0)[:, rnd - c0, ROOTS.index(name)]
+
+    def _slice(self, k: int) -> tuple[int, int]:
+        return self.clients or (0, k)
+
+    def candidates(self, rnd, k, n_req, fast):
+        if fast:
+            first, width = self._slice(k)
+            u = self._count("cand", prng.uniform(self.key("cand", rnd), width,
+                                                 offset=first))
+            return self._rows(topk_lowest(u, n_req, first, self.group).to(
+                torch.int32))
+        i = ROOTS.index("cand")
+        subs = self._table("perm", rnd, lambda keys: self._count(
+            "keys", prng.shuffle_keys(keys[:, :, i], k)))
+        self.drawn["cand"] += subs[..., 0].numel() * k
+        perm = prng.permute(subs, k)[:, :n_req]
+        return self._rows(perm.sort(dim=1).values.to(torch.int32))
+
+    def cells(self, rnd, s_cells, m):
+        return None, self._rows(self.key("cand", rnd))
+
+    def times(self, rnd, k, n_req, fast):
+        if fast:
+            u = prng.uniform(self.key("theta", rnd), 2 * n_req).view(
+                -1, 2, n_req)
+        else:
+            u = prng.uniform(torch.stack([self.key("theta", rnd),
+                                          self.key("gamma", rnd)], 1), k)
+        return self._rows(self._count("time", u))
+
+    def policy_uniforms(self, rnd, k):
+        first, width = self._slice(k)
+        return self._rows(self._count("pol", bandit.random_uniforms(
+            self.key("pol", rnd), k, first, width)))
+
+    def fault(self, rnd, s_round):
+        i = ROOTS.index("pol")
+        return self._rows(self._table("fault", rnd, lambda keys: self._count(
+            "fault", bandit.fault_uniforms(keys[:, :, i], s_round))))
+
+    def normals(self, rnd, cells):
+        i = ROOTS.index("cong")
+        return self._rows(self._table("cong", rnd, lambda keys: self._count(
+            "cong", prng.normal(keys[:, :, i], cells))))
+
+    def churn(self, rnd, k):
+        if k > 1 << 22:
+            raise ValueError(f"K={k}: the churn victim's (j + 0.5) / K is "
+                             f"exact up to K = 2^22")
+        i = ROOTS.index("churn")
+        return self._rows(self._table("churn", rnd, lambda keys: self._count(
+            "churn", churn_draws(keys[:, :, i], k))))
+
+
+def churn_draws(key: torch.Tensor, k: int) -> torch.Tensor:
+    """``engine_jax.churn_step``'s draws from its round keys [..., 2] as
+    :func:`churn_step`'s [..., 4] uniforms: whether (``uniform(k1)``), the
+    victim ``randint(k2, (), 0, K)`` as (j + 0.5) / K, and the uniforms of
+    the new device's distance (k3) and capability (k4)."""
+    sub = prng.split(key, 4)
+    u = prng.uniform(sub[..., [0, 2, 3], :])
+    j = prng.randint(sub[..., 1, :], (), 0, k)
+    return torch.stack([u[..., 0], (j.float() + 0.5) / k, u[..., 1],
+                        u[..., 2]], -1)
+
+
+def draw_round_inputs(streams, *, n_seeds: int | None = None,
+                      n_etas: int = 1, rnd: int = 0, k: int, n_req: int,
+                      s_round: int, fast: bool, fluctuate: bool, policy: str,
                       scen: Scenario, fault,
                       cells: tuple[int, int] | None = None) -> RoundDraws:
-    """Draw one round's inputs for every seed and repeat them over the eta
-    axis.  Candidates: a sorted permutation prefix (legacy path) or the
+    """Draw round ``rnd``'s (0-based) inputs and repeat them over the eta
+    axis ``n_etas`` times.  ``streams``: a :class:`KeyStreams` (its rows;
+    ``rnd`` picks the round's keys), or a dict of ``torch.Generator``s
+    (:func:`make_generators`; ``n_seeds`` rows, each generator running
+    on).  Candidates: a sorted permutation prefix (legacy path) or the
     sorted top-``n_req`` of K uniforms (streamed path) — both a uniform
     random ``n_req``-subset.  With ``cells`` = (s_cells, m) the round is
     hierarchical: instead of candidates it draws ``cell_u``, m uniforms for
-    each of the s_cells cells the round will select (``n_req`` is then the
-    round's candidate count)."""
-    device = gens["cand"].device
-
-    def rnd(name, *shape):
-        return torch.rand((n_seeds, *shape), generator=gens[name],
-                          device=device)
-
-    cand = cell_u = None
+    each of the s_cells cells the round will select, or with keys
+    ``cell_key``, the round's candidate keys (``n_req`` is then the round's
+    candidate count)."""
+    src = (streams if isinstance(streams, KeyStreams)
+           else _GeneratorStreams(streams, n_seeds))
+    cand = cell_u = cell_key = None
     if cells is not None:
-        cell_u = rnd("cand", *cells)
+        cell_u, cell_key = src.cells(rnd, *cells)
     else:
-        u = rnd("cand", k)
-        cand = (topk_lowest(u, n_req) if fast else
-                u.argsort(dim=1)[:, :n_req].sort(dim=1).values).to(
-                    torch.int32)
+        cand = src.candidates(rnd, k, n_req, fast)
     d = RoundDraws(
-        cand=cand, cell_u=cell_u,
-        u_time=rnd("time", 2, n_req if fast else k) if fluctuate else None,
-        rand=rnd("pol", k) if policy == "random" else None,
-        fault_u=rnd("fault", 3, s_round) if fault is not None else None,
-        cong=(torch.randn((n_seeds, scen.congestion_cells),
-                          generator=gens["cong"], device=device)
+        cand=cand, cell_u=cell_u, cell_key=cell_key,
+        u_time=src.times(rnd, k, n_req, fast) if fluctuate else None,
+        rand=src.policy_uniforms(rnd, k) if policy == "random" else None,
+        fault_u=src.fault(rnd, s_round) if fault is not None else None,
+        cong=(src.normals(rnd, scen.congestion_cells)
               if scen.congestion_cells > 0 and scen.congestion_sigma > 0.0
               else None),
-        churn=rnd("churn", 4) if scen.churn_prob > 0.0 else None)
+        churn=src.churn(rnd, k) if scen.churn_prob > 0.0 else None)
     if n_etas == 1:
         return d
     return RoundDraws(**{
@@ -363,11 +576,13 @@ class RoundRunner:
     (``bandit.make_segmented_round_fn``) on a state split into P client
     blocks; the runner holds only its process's P/R blocks (state, means
     and the environment's per-client arrays), global clients from
-    ``first`` on.  ``cells`` = (s_cells, n_req_cell) (streamed only) runs
-    the hierarchical rounds: each round first selects ``s_cells`` cells of
-    the scenario's ``congestion_cells`` from the cell aggregates, polls
-    ``n_req_cell`` candidates in each from the draws' ``cell_u`` and
-    afterwards folds the observed T_inc into the aggregates.
+    ``first`` on; the draws' ``rand`` is the flat [G, K] stream or this
+    process's columns of it.  ``cells`` = (s_cells, n_req_cell) (streamed
+    only) runs the hierarchical rounds: each round first selects
+    ``s_cells`` cells of the scenario's ``congestion_cells`` from the cell
+    aggregates, polls ``n_req_cell`` candidates in each from the draws'
+    ``cell_u`` (or from uniforms drawn from ``cell_key`` for the selected
+    cells) and afterwards folds the observed T_inc into the aggregates.
     """
 
     def __init__(self, env: EnvArrays, eta: torch.Tensor, *, policy: str,
@@ -448,8 +663,11 @@ class RoundRunner:
             s_cells, n_req_cell = self.cells
             cells_sel = bandit.select_cells(self.cell_n, self.cell_tinc,
                                             s_cells)
+            u = (d.cell_u if d.cell_u is not None else
+                 bandit.hier_cell_uniforms(d.cell_key, cells_sel,
+                                           -(-k // self.n_cells)))
             d = dataclasses.replace(d, cand=bandit.hier_cand_idx(
-                d.cell_u, cells_sel, k, self.n_cells, n_req_cell))
+                u, cells_sel, k, self.n_cells, n_req_cell))
             pre_tinc = self.state.sum_tinc.clone()   # the kernel updates it
         mult = scenario_thr_mult(self.scen, env.cell_id, d.cong, rnd,
                                  self._diurnal_table(rnd))
@@ -457,7 +675,12 @@ class RoundRunner:
         m_gamma, bits = self.m_gamma, self.model_bits
         if self.shards:
             p = self.shards.per_rank
-            out = self._fn(self.state, d.cand, d.u_time, d.rand,
+            rand = d.rand
+            if rand is not None and rand.shape[-1] == k:   # the flat stream
+                rand = rand[:, self.first:self.first + env.n_samples.shape[0]]
+            out = self._fn(self.state, d.cand, d.u_time,
+                           None if rand is None
+                           else sharding.shard_leading(rand, p, 1),
                            sharding.shard_leading(mu_t, p, 1),
                            sharding.shard_leading(m_gamma, p, 1),
                            sharding.shard_leading(env.n_samples, p, 0), eta,
@@ -579,6 +802,8 @@ class SweepResult:
     # per-slot outcome flags (core.bandit.FLAG_*) when the sweep ran with a
     # round deadline; None on fault-free sweeps
     flags: np.ndarray | None = None    # [P, E, S, R, s_round] int32
+    # random values this process drew, by stream (KeyStreams.drawn)
+    drawn: dict | None = None
 
     @property
     def elapsed(self) -> np.ndarray:
@@ -642,11 +867,17 @@ def sweep(scenario: Scenario | str = "paper-baseline",
     must divide P; with no group R = 1, one process holding every shard),
     and every rank returns the whole result (``distributed/sharding.py``).
 
+    The random numbers are the JAX package's, drawn from the seeds'
+    Threefry keys (:class:`KeyStreams`), so the result equals
+    ``engine_jax.sweep``'s with the same arguments: selections and flags
+    exactly, round times within float32 rounding.  ``SweepResult.drawn``
+    counts the values this process drew.
+
     ``shard="grid"`` edge-pads the flattened (eta x seed) axis to a
     multiple of R, runs each rank's rows through the flat path (the round
     kernels on the card) and all-gathers the round times: the result equals
-    the flat sweep's bitwise.  Each rank draws every seed's random numbers
-    and keeps its rows'.
+    the flat sweep's bitwise.  A rank draws only for the seeds of its own
+    rows.
 
     ``shard="clients"`` splits the K clients' bandit state into P
     contiguous blocks and runs the client-sharded segmented rounds
@@ -654,15 +885,17 @@ def sweep(scenario: Scenario | str = "paper-baseline",
     streamed and fused; otherwise it runs the flat path on every rank,
     which gives the same results.  A rank holds its P/R blocks as a
     leading axis of its tensors and crosses shards by ``all_reduce`` and
-    ``all_gather``; the draws are the flat path's, so the results equal the
-    flat sweep's bitwise.  On one card this path is slower than the flat
-    one at every K measured (PERF.md).
+    ``all_gather``.  It draws the candidate and the random policy's
+    uniforms only at its own K/R clients, takes the top n_req candidates
+    of its slice and all-gathers their keys (:func:`topk_lowest`), so the
+    results equal the flat sweep's bitwise.  On one card this path is
+    slower than the flat one at every K measured (PERF.md).
 
     ``chunk_rounds`` = c must divide ``n_rounds`` (ValueError otherwise, as
-    in the JAX package), where it caps the presampled draws at c rounds.
-    The port draws every round inside its loop, so its draws take O(K) per
-    grid point whatever c is, and the results are the unchunked ones
-    bitwise.
+    in the JAX package).  The keys and the small per-round streams are
+    drawn c rounds at a time (the whole run when None), the K-sized
+    streams round by round; every draw depends on its round key alone, so
+    the results are the unchunked ones bitwise.
 
     ``hierarchy="cells"`` runs the two-level selection on the streamed
     path: each round scores the scenario's ``congestion_cells`` cells by a
@@ -727,24 +960,29 @@ def sweep(scenario: Scenario | str = "paper-baseline",
     env = scenario.build_env(n_clients, np.random.default_rng(env_seed))
     env_arrays = EnvArrays.from_scenario(scenario, env, device)
     n_grid = len(etas) * len(seeds)
-    g_eta = torch.tensor(etas, dtype=torch.float32,
-                         device=device).repeat_interleave(len(seeds))
-    if grid is not None:        # grid point g = eta index * n_seeds + seed
-        rows = sharding.grid_rows(n_grid, grid, device)
-        g_eta, seed_rows = g_eta[rows], rows % len(seeds)
-
-    def draw(name):
-        d = draw_round_inputs(
-            gens, n_seeds=len(seeds),
-            n_etas=len(etas) if grid is None else 1, k=n_clients,
-            n_req=n_req, s_round=s_round, fast=fast, fluctuate=fluctuate,
-            policy=name, scen=scenario, fault=fault, cells=draw_cells)
-        return d if grid is None else take_rows(d, seed_rows)
+    # grid point g = eta index * n_seeds + seed index; this process's rows
+    rows = (torch.arange(n_grid) if grid is None
+            else sharding.grid_rows(n_grid, grid))
+    g_eta = torch.tensor(etas, dtype=torch.float32).repeat_interleave(
+        len(seeds))[rows].to(device)
+    mine, seed_rows = torch.unique(rows % len(seeds), return_inverse=True)
+    if torch.equal(seed_rows, torch.arange(len(mine))):
+        seed_rows = None                         # one row per seed
+    clients = (None if shards is None or shards.group is None else
+               (shards.first * (n_clients // shards.n_shards),
+                shards.per_rank * (n_clients // shards.n_shards)))
+    streams = KeyStreams(
+        [seeds[i] for i in mine.tolist()], n_rounds, device,
+        rows=None if seed_rows is None else seed_rows.to(device),
+        chunk=chunk_rounds, clients=clients,
+        group=None if clients is None else shards.group)
 
     rts_all, flags_all = [], []
     for name, hyper in zip(pol_names, hypers):
-        gens = make_generators(seeds, device)
-        draws = (draw(name) for _ in range(n_rounds))
+        draws = (draw_round_inputs(
+            streams, rnd=r, k=n_clients, n_req=n_req, s_round=s_round,
+            fast=fast, fluctuate=fluctuate, policy=name, scen=scenario,
+            fault=fault, cells=draw_cells) for r in range(n_rounds))
         rts, flags, _ = run_rounds(
             env_arrays, g_eta, draws, policy=name, scen=scenario,
             s_round=s_round, hyper=hyper, model_bits=float(model_bits),
@@ -767,4 +1005,5 @@ def sweep(scenario: Scenario | str = "paper-baseline",
                        etas=etas, seeds=seeds,
                        round_times=np.ascontiguousarray(rts),
                        flags=None if flags is None
-                       else np.ascontiguousarray(flags))
+                       else np.ascontiguousarray(flags),
+                       drawn=dict(streams.drawn))

@@ -13,7 +13,9 @@ manage their own random numbers share it:
     approximation, float64) + ``sample_truncated_normal`` — a copy of the
     JAX package's numpy half;
   * torch: ``truncnorm_transform`` (Phi^-1 via :func:`erfinv`, float32), the
-    counterpart of the JAX package's ``truncnorm_transform``.
+    counterpart of the JAX package's ``truncnorm_transform``, and
+    ``sample_truncated_normal_key``, of its ``sample_truncated_normal_jax``
+    (the uniforms drawn from JAX's Threefry keys, core/prng.py).
 
 :func:`erfinv` is the single-precision polynomial of M. Giles,
 "Approximating the erfinv function" (GPU Computing Gems, 2011) — the form
@@ -145,3 +147,15 @@ def truncnorm_transform(u: torch.Tensor, mean: torch.Tensor,
     z = SQRT2 * erfinv(2.0 * p - 1.0)
     out = mean + sigma * z
     return torch.clamp(out, (mean - sigma).clamp_min(1e-9), mean + sigma)
+
+
+def sample_truncated_normal_key(key: torch.Tensor, mean: torch.Tensor,
+                                eta) -> torch.Tensor:
+    """Eq. (8) with the uniforms drawn from a key, as the JAX package's
+    ``sample_truncated_normal_jax`` draws them: ``jax.random.uniform(key,
+    mean.shape)``, then :func:`truncnorm_transform`.  ``key``: [..., 2],
+    one key per leading row of ``mean`` [..., *shape] (a single [2] key for
+    a ``mean`` of any shape); ``eta`` as in :func:`truncnorm_transform`."""
+    from repro_torch.core import prng
+    u = prng.uniform(key, mean.shape[key.dim() - 1:])
+    return truncnorm_transform(u, mean, eta)

@@ -80,53 +80,16 @@ def _rank_main(rank: int, world: int, run: str, fn, args) -> None:
 # rank functions
 # ---------------------------------------------------------------------------
 
-def sweeps(rank: int, world: int, cases: dict) -> dict:
+def sweeps(rank: int, world: int, cases: dict, drawn: bool = False) -> dict:
     """``sim.engine.sweep(**kw)`` for each named case: round times and
-    flags."""
+    flags, and with ``drawn`` the values this rank drew
+    (``SweepResult.drawn``)."""
     from repro_torch.sim import engine
     out = {}
     for name, kw in cases.items():
         res = engine.sweep(device="cpu", **kw)
-        out[name] = (res.round_times, res.flags)
-    return out
-
-
-def replayed_sweeps(rank: int, world: int, cases: dict,
-                    tables: dict) -> dict:
-    """:func:`sweeps` with each case's random inputs replayed from
-    ``tables[name]`` instead of drawn: ``sim.engine.draw_round_inputs`` is
-    swapped, for the duration of the call, for one that returns round r's
-    arrays ([R, n_seeds, ...] each, absent streams left out), repeated over
-    the eta axis as the real one does.  The sweep runs as it is otherwise:
-    its layout, shards and collectives."""
-    from repro_torch.sim import engine
-    real = engine.draw_round_inputs
-    out = {}
-    try:
-        for name, kw in cases.items():
-            table = tables[name]
-            n_rounds = kw["n_rounds"]
-            calls = itertools.count()
-
-            def replay(gens, *, n_etas, policy, fault, **_):
-                r = next(calls) % n_rounds
-
-                def get(key, when=True):
-                    x = table.get(key)
-                    if x is None or not when:
-                        return None
-                    x = torch.from_numpy(np.ascontiguousarray(x[r]))
-                    return x.repeat(n_etas, *([1] * (x.dim() - 1)))
-                return engine.RoundDraws(
-                    cand=get("cand"), u_time=get("u_time"),
-                    rand=get("rand", policy == "random"),
-                    fault_u=get("fault_u", fault is not None),
-                    cong=get("cong"), churn=get("churn"))
-            engine.draw_round_inputs = replay
-            res = engine.sweep(device="cpu", **kw)
-            out[name] = (res.round_times, res.flags)
-    finally:
-        engine.draw_round_inputs = real
+        out[name] = ((res.round_times, res.flags, res.drawn) if drawn
+                     else (res.round_times, res.flags))
     return out
 
 

@@ -212,7 +212,8 @@ def test_segmented_round_matches_jax(policy, p, failure):
     for r, d in enumerate(rounds):
         rand = t(d["rand"]) if policy == "random" else None
         fault_u = t(d["fault_u"]) if failure else None
-        out = seg(state, t(d["cand"]), t(d["u2"]), rand,
+        out = seg(state, t(d["cand"]), t(d["u2"]),
+                  None if rand is None else sharding.shard_leading(rand, p, 1),
                   sharding.shard_leading(t(theta), p, 1),
                   sharding.shard_leading(t(gamma), p, 1),
                   sharding.shard_leading(t(n_samples), p, 0), t(ETAS),
